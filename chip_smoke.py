@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
-(nvcc, sm_90a) and the native gridder, then runs two paths of the port:
+(nvcc, sm_90a) and the native gridder, then runs three paths of the port:
 
 - ICP scan alignment: B1/B2 held against their plain PyTorch versions
   (float32 and float64) at the engine's shapes (~8M correspondences, chunk
@@ -21,10 +21,20 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   of ~5.6M points, ~2.2M multi-resolution points) through the CLI at full
   resolution for 3 iterations.
 
+- The ICP measurement path: B4a (``gn_rows``, C = 2 and C = 5, per-row
+  cloud ids), B4b (``moment_gram48``), B4c (``moment_gram_thirds``), B5a
+  (``moment_gram_repeat``, two different copies) and B5b (``hbm_read_sum``)
+  against their plain versions at 8M correspondences / 8,388,608 columns;
+  then ``tools.icp_bench.main(["--device", "cuda"])`` at full width (8M
+  correspondences x 20 iterations, the engine A/B at 1M / 8M / 28M), whose
+  JSON line is printed; then ``entry()``'s step on the card.
+
 It fails (non-zero exit, no result line) if CUDA is absent, a kernel does
 not build, launch or agree, a path did not launch each of its kernels, the
-alignment does not remove the initial offset, or the registration does not
-lower the cost and the pose error. The last line is
+alignment does not remove the initial offset, the registration does not
+lower the cost and the pose error, the engines of the A/B end at different
+poses, the repeat slope and the event time of the moment pass disagree, or
+the read bandwidth comes out above the card's stated peak. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and the one before that the per-kernel JSON.
 """
@@ -41,6 +51,8 @@ import numpy as np
 
 ICP_KERNELS = ("gn_fused", "moment_gram")
 REG_KERNELS = ("pyramid_sample_derivs", "pyramid_sample_value")
+BENCH_KERNELS = ("gn_fused", "moment_gram", "gn_rows", "moment_gram48", "moment_gram_thirds",
+                 "moment_gram_repeat", "hbm_read_sum")
 ENGINE_CHUNK = 49152
 CORR_TOTAL = 8_000_000
 SCAN_POINTS = 4_000_000  # per scan: two scans give ~8M correspondences
@@ -55,6 +67,17 @@ REG_Q_TOL, REG_T_TOL, REG_PARAM_TOL, REG_COST_RTOL = 5e-7, 5e-7, 1e-3, 1e-4
 REG_MIN_MOTION = 20  # each scale run moves every pose by >= 20x REG_Q_TOL / REG_T_TOL
 DSLR_MIN_POINTS, DSLR_MIN_OBS = 1_500_000, 20_000_000
 L2_BYTES = 50 * 2**20  # H100 L2
+# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
+# the tensor cores; a kernel's bound is the larger of its bytes (each input
+# read once, each output written once) and its operations over these
+HBM_BYTES_PER_S, FP32_FLOPS = 3.35e12, 67e12
+B1_FLOPS = 240  # per correspondence: posing 66, residuals 14, crosses 18, the 28 sums 142
+B4A_FLOPS = 364  # per correspondence: 2 products x 91 FMAs (13 non-zeros per column)
+B4B_CHUNK = 16384
+HBM_MP = 8_388_608
+ENGINE_POSE_TOL = 1e-5  # moment / device-LM engines vs the direct engine, q and t
+PASS_AGREE = 0.15  # repeat slope vs CUDA events on the moment pass
+HBM_CEILING = 1.05  # measured read bandwidth over the stated peak, at most
 
 
 def fail(msg: str) -> None:
@@ -104,6 +127,12 @@ def synthetic_groups(torch, pairs, total: int, seed: int):
     return groups
 
 
+def bound(nbytes: float, flops: float) -> dict:
+    """The least milliseconds the card could take, and which limit gives it."""
+    by, op = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bound_ms": 1e3 * max(by, op), "bound_by": "bytes" if by >= op else "operations"}
+
+
 def check_b1(torch, gn, pack_group_data, se3_exp_np, C: int, seed: int):
     pairs = [(s, t) for s in range(C) for t in range(C) if s != t]
     groups = synthetic_groups(torch, pairs, CORR_TOTAL, seed)
@@ -140,7 +169,8 @@ def check_b1(torch, gn, pack_group_data, se3_exp_np, C: int, seed: int):
           f"rel H {rel['H']:.3e} b {rel['b']:.3e} cost {rel['cost']:.3e}; f32 plain vs f64 "
           f"rel H {rel32:.3e}; max|kernel - f32 plain| {max_abs:.3e}; max|H| "
           f"{np.max(np.abs(p64[0])):.3e}; kernel {ms:.4f} ms, f32 plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **bound(data.numel() * 4, B1_FLOPS * data.shape[1]), "library_ms": None}
 
 
 def check_b2(torch, gn, pack_group_data, compute_group_moments_from_packed, seed: int):
@@ -178,7 +208,228 @@ def check_b2(torch, gn, pack_group_data, compute_group_moments_from_packed, seed
           f"{worst_max:.3e} of max|P|, {worst_fro:.3e} of ||P||_F (engine assumes noise "
           f"1e-7 ||P||_F); f32 plain vs f64 {worst32:.3e} of ||P||_F; max|kernel - f32 plain| "
           f"{max_abs:.3e}; kernel {ms:.4f} ms, f32 plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+            **bound(data.numel() * 4 + kernel()[0].numel() * 4, gn.MOMENT_FLOPS_PER_ROW * data.shape[1]),
+            "library_ms": None}
+
+
+# ---------------------------------------------------------------------------
+# The ICP measurement path: B4a, B4b, B4c, B5a, B5b and tools/icp_bench.py
+# ---------------------------------------------------------------------------
+
+
+def check_b4a(torch, gn, C: int, seed: int):
+    """B4a against its plain version (float32 and float64) at 8M rows with
+    random per-row cloud ids and weights in {0, 1} mixed with random ones."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    M = CORR_TOTAL
+    j1, j2 = (torch.randn((6, M), generator=g, device="cuda") for _ in range(2))
+    r1, r2 = (0.01 * torch.randn(M, generator=g, device="cuda") for _ in range(2))
+    sid = torch.randint(0, C, (M,), generator=g, device="cuda", dtype=torch.int32)
+    tid = ((sid + torch.randint(0, C, (M,), generator=g, device="cuda", dtype=torch.int32)) % C
+           ).to(torch.int32)
+    u = torch.rand((3, M), generator=g, device="cuda")
+    w = torch.where(u[0] < 0.5, (u[1] > 0.2).float(), u[2])
+    del u
+    args = (j1, j2, r1, r2, sid, tid, w)
+    k = [x.cpu().numpy() for x in gn.gn_rows(*args, C)]
+    k2 = [x.cpu().numpy() for x in gn.gn_rows(*args, C)]
+    if any(not np.array_equal(a, b) for a, b in zip(k, k2)):
+        fail(f"B4a C={C}: two identical launches disagree (not deterministic)")
+    p32 = [x.cpu().numpy() for x in gn.gn_rows_plain(*args, C)]
+    p64 = [x.cpu().numpy() for x in gn.gn_rows_plain(
+        *[a.double() if a.is_floating_point() else a for a in args], C)]
+    rel = {name: float(np.max(np.abs(k[i] - p64[i])) / max(np.max(np.abs(p64[i])), 1e-30))
+           for i, name in enumerate(("H", "b", "cost"))}
+    max_abs = float(max(np.max(np.abs(k[i] - p32[i])) for i in range(3)))
+    if not all(np.isfinite(x).all() for x in k) or max(rel.values()) > B1_TOL:
+        fail(f"B4a C={C}: kernel vs float64 plain {rel} > {B1_TOL}")
+    ms = cuda_ms(lambda: gn.gn_rows(*args, C), torch)
+    plain_ms = cuda_ms(lambda: gn.gn_rows_plain(*args, C), torch, warmup=1, reps=5)
+    S = 6 * C + 1
+    # a column of A1 / A2 has 13 non-zeros (two 6-row blocks and the residual)
+    # whatever C is: 2 x 91 FMAs per row fill the upper triangle of both products
+    b = bound(68 * M + 8 * S * S, B4A_FLOPS * M)
+    print(f"B4a gn_rows C={C} M={M} (per-row ids): kernel vs f64 plain rel H {rel['H']:.3e} "
+          f"b {rel['b']:.3e} cost {rel['cost']:.3e}; max|kernel - f32 plain| {max_abs:.3e}; "
+          f"kernel {ms:.4f} ms, f32 plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def gram_check(name, got, ref64, ref32):
+    """Max error of a stack of Grams against the float64 plain version, as
+    a share of max|P| (must stay under B2_TOL), and against the float32 one."""
+    got = got.double()
+    scale = float(ref64.abs().max())
+    err = float((got - ref64).abs().max())
+    if not bool(got.isfinite().all()) or err > B2_TOL * scale:
+        fail(f"{name}: max err {err:.3e} > {B2_TOL} * max|P| = {B2_TOL * scale:.3e}")
+    return err / scale, float((got - ref32.double()).abs().max())
+
+
+def check_moment_variants(torch, gn, pack_group_data, seed: int):
+    """B4b (one zero-padded (48,48) part per chunk of 16384, 16-row input),
+    B4c (per-third Grams, chunk 49152) and B5a (two different copies, R = 5)
+    against their plain versions at ~8M correspondences."""
+    pairs = [(0, 1), (1, 0)]
+    groups = synthetic_groups(torch, pairs, CORR_TOTAL, seed)
+    out = {}
+
+    # B4b
+    data16, _ = pack_group_data(groups, B4B_CHUNK, rows=16, device="cuda")
+    k = gn.moment_gram48(data16, B4B_CHUNK)
+    if not torch.equal(k, gn.moment_gram48(data16, B4B_CHUNK)):
+        fail("B4b: two identical launches disagree (not deterministic)")
+    if bool(k[:, 42:, :].any()) or bool(k[:, :, 42:].any()):
+        fail("B4b: rows or columns 42..47 are not exactly zero")
+    p32 = gn.moment_gram48_plain(data16, B4B_CHUNK)
+    rel, max_abs = gram_check("B4b", k, gn.moment_gram48_plain(data16.double(), B4B_CHUNK), p32)
+    ms = cuda_ms(lambda: gn.moment_gram48(data16, B4B_CHUNK), torch)
+    plain_ms = cuda_ms(lambda: gn.moment_gram48_plain(data16, B4B_CHUNK), torch, warmup=1, reps=5)
+    Mp = data16.shape[1]
+    out["moment_gram48"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                            **bound(52 * Mp + k.numel() * 4, gn.MOMENT_FLOPS_PER_ROW * Mp), "library_ms": None}
+    print(f"B4b moment_gram48 M={Mp} (chunk {B4B_CHUNK}, 16 rows): kernel vs f64 plain max err "
+          f"{rel:.3e} of max|P|; pad rows zero; max|kernel - f32 plain| {max_abs:.3e}; kernel "
+          f"{ms:.4f} ms, f32 plain {plain_ms:.4f} ms")
+    del data16, k, p32
+
+    # B4c
+    data, _ = pack_group_data(groups, ENGINE_CHUNK, rows=13, device="cuda")
+    k = gn.moment_gram_thirds(data, ENGINE_CHUNK)
+    if not torch.equal(k, gn.moment_gram_thirds(data, ENGINE_CHUNK)):
+        fail("B4c: two identical launches disagree (not deterministic)")
+    p32 = gn.moment_gram_thirds_plain(data, ENGINE_CHUNK)
+    rel, max_abs = gram_check("B4c", k, gn.moment_gram_thirds_plain(data.double(), ENGINE_CHUNK), p32)
+    ms = cuda_ms(lambda: gn.moment_gram_thirds(data, ENGINE_CHUNK), torch)
+    plain_ms = cuda_ms(lambda: gn.moment_gram_thirds_plain(data, ENGINE_CHUNK), torch,
+                       warmup=1, reps=5)
+    Mp = data.shape[1]
+    out["moment_gram_thirds"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                                 **bound(52 * Mp + k.numel() * 4, gn.MOMENT_FLOPS_PER_ROW * Mp),
+                                 "library_ms": None}
+    print(f"B4c moment_gram_thirds M={Mp} (chunk {ENGINE_CHUNK}, per third): kernel vs f64 plain "
+          f"max err {rel:.3e} of max|P|; max|kernel - f32 plain| {max_abs:.3e}; kernel {ms:.4f} ms, "
+          f"f32 plain {plain_ms:.4f} ms")
+    del k, p32
+
+    # B5a: a second, different copy
+    other, _ = pack_group_data(synthetic_groups(torch, pairs, CORR_TOTAL, seed + 100),
+                               ENGINE_CHUNK, rows=13, device="cuda")
+    data2 = torch.stack([data, other])
+    del groups, data, other
+    k, per_chunk = gn.moment_gram_repeat(data2, ENGINE_CHUNK, 5)
+    if not torch.equal(k, gn.moment_gram_repeat(data2, ENGINE_CHUNK, 5)[0]):
+        fail("B5a: two identical launches disagree (not deterministic)")
+    k = k.reshape(-1, per_chunk, 42, 42)
+    ref64 = (3 * gn.moment_gram_plain(data2[0].double(), ENGINE_CHUNK)
+             + 2 * gn.moment_gram_plain(data2[1].double(), ENGINE_CHUNK))
+    p32 = gn.moment_gram_repeat_plain(data2, ENGINE_CHUNK, 5)
+    rel, max_abs = gram_check("B5a", k.double().sum(1), ref64, p32)
+    one, _ = gn.moment_gram_repeat(data2, ENGINE_CHUNK, 1)
+    if not torch.equal(one, gn.moment_gram_partials(data2[0], ENGINE_CHUNK)[0]):
+        fail("B5a: one repeat differs from the B2 kernel on the same copy")
+    ms = cuda_ms(lambda: gn.moment_gram_repeat(data2, ENGINE_CHUNK, 1), torch)
+    ms5 = cuda_ms(lambda: gn.moment_gram_repeat(data2, ENGINE_CHUNK, 5), torch)
+    plain_ms = cuda_ms(lambda: gn.moment_gram_repeat_plain(data2, ENGINE_CHUNK, 1), torch,
+                       warmup=1, reps=5)
+    Mp = data2.shape[2]
+    out["moment_gram_repeat"] = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms,
+                                 **bound(52 * Mp + one.numel() * 4, gn.MOMENT_FLOPS_PER_ROW * Mp),
+                                 "library_ms": None}
+    print(f"B5a moment_gram_repeat M={Mp} (two different copies): R=5 vs 3 Gram(copy0) + "
+          f"2 Gram(copy1) in f64 max err {rel:.3e} of max; max|kernel - f32 plain| {max_abs:.3e}; "
+          f"R=1 bitwise the B2 kernel; R=1 {ms:.4f} ms, R=5 {ms5:.4f} ms "
+          f"({(ms5 - ms) / 4:.4f} ms per further repeat), f32 plain (R=1) {plain_ms:.4f} ms")
+    return out
+
+
+def check_b5b(torch, hbm, seed: int):
+    """B5b against the float64 sum at R = 1 and R = 3; the one PyTorch call
+    with the same function, ``data2[0].sum(1)``, is timed beside it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    data2 = torch.randn((2, 8, HBM_MP), generator=g, device="cuda")
+    rel = 0.0
+    for R in (1, 3):
+        k = hbm.hbm_read_sum(data2, R)
+        if not torch.equal(k, hbm.hbm_read_sum(data2, R)):
+            fail(f"B5b R={R}: two identical launches disagree (not deterministic)")
+        ref = hbm.hbm_read_sum_plain(data2.double(), R)
+        rel = max(rel, float((k.double() - ref).abs().max() / ref.abs().max()))
+        if not bool(k.isfinite().all()) or rel > 1e-5:
+            fail(f"B5b R={R}: kernel vs float64 sum {rel:.3e} > 1e-5 of max|sum|")
+    one = hbm.hbm_read_sum(data2, 1)
+    max_abs = float((one - hbm.hbm_read_sum_plain(data2, 1)).abs().max())
+    ms = cuda_ms(lambda: hbm.hbm_read_sum(data2, 1), torch)
+    many = 17  # enough further repeats to hide the first launch's latency
+    ms_many = cuda_ms(lambda: hbm.hbm_read_sum(data2, many), torch)
+    per_repeat = (ms_many - ms) / (many - 1)
+    plain_ms = cuda_ms(lambda: hbm.hbm_read_sum_plain(data2, 1), torch, warmup=1, reps=5)
+    library_ms = cuda_ms(lambda: data2[0].sum(1), torch)
+    nbytes = 8 * HBM_MP * 4
+    b = bound(nbytes + 32, 8 * HBM_MP)
+    if nbytes / (1e-3 * per_repeat) > HBM_CEILING * HBM_BYTES_PER_S:
+        fail(f"B5b: {nbytes / per_repeat / 1e6:.1f} GB/s per further repeat reads above "
+             f"{HBM_CEILING} x the card's stated peak: the repeats are served from L2")
+    print(f"B5b hbm_read_sum mp={HBM_MP} ({nbytes / 1e6:.0f} MB per pass): kernel vs f64 sum "
+          f"{rel:.3e} of max|sum|; R=1 {ms:.4f} ms ({nbytes / ms / 1e6:.1f} GB/s with the final "
+          f"sum), R={many} {ms_many:.4f} ms ({per_repeat:.4f} ms per further repeat = "
+          f"{nbytes / per_repeat / 1e6:.1f} GB/s); plain {plain_ms:.4f} ms; data2[0].sum(1) "
+          f"{library_ms:.4f} ms ({nbytes / library_ms / 1e6:.1f} GB/s); bound {b['bound_ms']:.4f} ms")
+    return {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
+
+
+def run_icp_bench(torch, kernels, icp_bench, entry):
+    """The ICP measurement path at full width through the tool's ``main``,
+    then ``entry()``'s step; returns the tool's results and the launches."""
+    res = {}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = icp_bench.main(["--device", "cuda"], results=res)  # prints its JSON line
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in BENCH_KERNELS}
+    if rc != 0:
+        fail(f"icp_bench returned {rc}")
+    print(f"icp_bench: {wall:.1f} s; launches {launches}")
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"the ICP measurement path never launched kernel {k}")
+    flat = {**{k: v for k, v in res.items() if not isinstance(v, (dict, str))},
+            **res["kernel_variants_ms"]}
+    bad = [k for k, v in flat.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"icp_bench: non-finite values for {bad}")
+    for key, tag in (("moment", "1m"), ("moment", "8m"), ("moment", "28m"), ("device_lm", "8m")):
+        gap = res[f"icp_engine_{key}_pose_gap_{tag}"]
+        if not gap <= ENGINE_POSE_TOL:
+            fail(f"icp_bench: the {key} engine ends {gap:.3e} from the direct engine at "
+                 f"{tag} > {ENGINE_POSE_TOL}")
+    slope, event = res["icp_moment_pass_s"], res["icp_moment_pass_event_s"]
+    if abs(slope - event) > PASS_AGREE * event:
+        fail(f"icp_bench: the moment pass by repeat slope {slope * 1e3:.4f} ms and by CUDA "
+             f"events {event * 1e3:.4f} ms differ by more than {PASS_AGREE:.0%}")
+    if not res["hbm_copy_gbps"] <= HBM_CEILING * HBM_BYTES_PER_S / 1e9:
+        fail(f"icp_bench: hbm_copy_gbps {res['hbm_copy_gbps']:.1f} reads above {HBM_CEILING} x "
+             "the card's stated peak: the harness is served from L2")
+    print(f"icp_bench: moment pass {slope * 1e3:.4f} ms by repeat slope, {event * 1e3:.4f} ms by "
+          f"events; read bandwidth {res['hbm_copy_gbps']:.1f} GB/s by the repeat slope "
+          f"({res['hbm_copy_gbps'] / (HBM_BYTES_PER_S / 1e9):.1%} of the stated peak); engine "
+          + "; ".join(f"{tag}: moment {res[f'icp_engine_moment_s_{tag}']:.4f} s, direct "
+                      f"{res[f'icp_engine_direct_s_{tag}']:.4f} s" for tag in ("1m", "8m", "28m"))
+          + f"; device LM at 8m {res['icp_engine_device_lm_s_8m']:.4f} s")
+
+    fn, args = entry.entry()
+    if any(a.device.type != "cuda" for a in args):
+        fail("entry(): the example arguments are not on the card")
+    H, b, cost = fn(*args)
+    torch.cuda.synchronize()
+    if not (H.shape == (12, 12) and b.shape == (12,) and bool(H.isfinite().all())
+            and bool(b.isfinite().all()) and bool(cost.isfinite()) and float(cost) > 0):
+        fail("entry(): the step's H, b, cost are not finite of the expected shape")
+    print(f"entry(): H (12,12), b (12,), cost {float(cost):.6f} on {H.device}")
+    return res, launches
 
 
 def height(x, y):
@@ -260,8 +511,10 @@ def check_b3(torch, tps, seed: int):
               f"sectors; bytes from the inputs: >= {lo / 1e9:.3f} GB from DRAM (distinct "
               f"sectors - L2 + streamed) -> >= {lo / ms / 1e6:.1f} GB/s; <= {hi / 1e9:.3f} GB "
               f"if every sector request missed L2 -> {hi / ms / 1e6:.1f} GB/s")
+        # the bound counts what these inputs need: every distinct sector once
         out[mode] = {"max_abs_err": max(a for a, _ in errs.values()), "ms": ms,
-                     "plain_ms": plain_ms}
+                     "plain_ms": plain_ms,
+                     **bound(sectors["distinct"] * 32 + streamed, 100 * obs), "library_ms": None}
     return out
 
 
@@ -415,7 +668,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs the GPU")
     try:
-        from dataset_pipeline_tpu_torch import kernels
+        from dataset_pipeline_tpu_torch import entry, kernels
         from dataset_pipeline_tpu_torch.icp.moments import (
             compute_group_moments_from_packed,
             pack_group_data,
@@ -430,9 +683,9 @@ def main() -> int:
         from dataset_pipeline_tpu_torch.models.lie import quat_to_matrix_np
         from dataset_pipeline_tpu_torch.io import colmap as cio
         from dataset_pipeline_tpu_torch.io.ply import PointCloud, write_ply
-        from dataset_pipeline_tpu_torch.ops import gn
+        from dataset_pipeline_tpu_torch.ops import gn, hbm
         from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
-        from dataset_pipeline_tpu_torch.tools import icp_scan_aligner, image_registrator
+        from dataset_pipeline_tpu_torch.tools import icp_bench, icp_scan_aligner, image_registrator
         from dataset_pipeline_tpu_torch.utils import synthetic
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
@@ -524,18 +777,30 @@ def main() -> int:
         reg = run_registrator_dslr(torch, kernels, image_registrator, synthetic, cio,
                                    quat_to_matrix_np, os.path.join(root, "dslr"))
 
-    report = [
-        {"name": "gn_fused", "route": "cuda", "source": "dataset_pipeline_tpu_torch/csrc/gn_fused.cu",
-         "replaces": "dataset_pipeline_tpu/ops/pallas_gn.py:160", "launches": launches["gn_fused"], **b1},
-        {"name": "moment_gram", "route": "cuda",
-         "source": "dataset_pipeline_tpu_torch/csrc/moment_gram.cu",
-         "replaces": "dataset_pipeline_tpu/ops/pallas_gn.py:360",
-         "launches": launches["moment_gram"], **b2},
-        {"name": "pyramid_sample", "route": "cuda",
-         "source": "dataset_pipeline_tpu_torch/csrc/pyramid_sample.cu",
-         "replaces": "dataset_pipeline_tpu/ops/brick.py:135",
-         "launches": sum(reg.values()), **b3["derivs"]},
-    ]
+    # the ICP measurement path
+    t0 = time.perf_counter()
+    b4a = check_b4a(torch, gn, C=2, seed=5)
+    check_b4a(torch, gn, C=5, seed=6)
+    torch.cuda.empty_cache()
+    variants = check_moment_variants(torch, gn, pack_group_data, seed=7)
+    torch.cuda.empty_cache()
+    b5b = check_b5b(torch, hbm, seed=8)
+    torch.cuda.empty_cache()
+    print(f"B4a, B4b, B4c, B5a, B5b checks: {time.perf_counter() - t0:.1f} s")
+    _, bench = run_icp_bench(torch, kernels, icp_bench, entry)
+
+    # per kernel: the launches of each main path that runs it, and this run's numbers
+    by_path = {"icp_scan_aligner": launches, "image_registrator": {"pyramid_sample": sum(reg.values())},
+               "icp_bench": bench}
+    measured = {"gn_fused": b1, "moment_gram": b2, "pyramid_sample": b3["derivs"], "gn_rows": b4a,
+                "hbm_read_sum": b5b, **variants}
+    report = []
+    for kname, k in kernels.KERNELS.items():
+        paths = {p: c[kname] for p, c in by_path.items() if kname in c}
+        report.append({"name": kname, "route": "cuda",
+                       "source": f"dataset_pipeline_tpu_torch/csrc/{k.source}",
+                       "replaces": k.replaces, "launches": sum(paths.values()),
+                       "launches_by_path": paths, **measured[kname]})
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -2,128 +2,22 @@
 //
 // Replaces the TPU kernel dataset_pipeline_tpu/ops/pallas_gn.py
 // `_moment_kernel_tri_sub` (called through `icp_moment_pallas_tri_sub`). The
-// 42 pose-independent monomials of a correspondence are (layout of
-// icp/moments.py)  m = [b; ps_k * b; pt_k * b], k = 0..2, b = sqrt(w) [ns; nt].
-// The TPU kernel stacks three 42-row groups into a 128-row MXU operand and
+// TPU kernel stacks three 42-row groups into a 128-row MXU operand and
 // keeps the diagonal blocks; none of that layout is carried over: this kernel
 // writes one 42x42 partial per block, and the host sums the partials of a
-// correspondence group in float64 (icp/moments.py).
-//
-// Bound on the H100: fp32 FMA throughput. A correspondence is 13 floats
-// (52 B) but 28 6x6 register tiles cover the upper triangle (1008 FMAs), so
-// 8M correspondences are 416 MB (0.12 ms at 3.35 TB/s) against 8.1 G FMAs
-// (0.25 ms at 67 TFLOP/s fp32). Tensor cores would need TF32, which loses
-// the digits the moment LM's noise floor is built on, so the kernel stays on
-// the fp32 pipes. Design: a 256-row tile is staged in shared memory as
-// monomials (each thread builds one row's 42 from its 13 inputs; the padded
-// pitch keeps the column reads of different monomials on different banks);
-// 252 threads each own one 6x6 tile of the upper triangle for one of 9
-// interleaved row groups, so a row costs 12 shared loads per 36 FMAs. The
-// nine row-group sums are added in a fixed order at the end: no atomics, and
-// the partials are bitwise reproducible.
+// correspondence group in float64 (icp/moments.py). The bound (fp32 FMAs)
+// and the block's design are described in moment_gram.cuh.
 
-#include <cuda_runtime.h>
+#include "moment_gram.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kTile = 256;         // rows staged per pass (one per thread)
-constexpr int kPitch = kTile + 1;  // shared-memory pitch of one monomial's row
-constexpr int kMono = 42;
-constexpr int kTiles = 28;   // 6x6 tiles on or above the diagonal of a 7x7 grid
-constexpr int kGroups = 9;   // interleaved row groups: 28 * 9 = 252 threads
-
-__device__ __forceinline__ void tile_coords(int tile, int* ta, int* tb) {
-  int k = tile;
-  for (int a = 0; a < 7; ++a) {
-    if (k < 7 - a) {
-      *ta = a;
-      *tb = a + k;
-      return;
-    }
-    k -= 7 - a;
-  }
-  *ta = 0;
-  *tb = 0;
-}
-
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(moment::kThreads)
 moment_gram_kernel(const float* __restrict__ data, long long stride,
                    int rows_per_block, float* __restrict__ parts) {
-  __shared__ float m[kMono * kPitch];
-
-  const int tid = threadIdx.x;
-  const long long row0 = (long long)blockIdx.x * rows_per_block;
-  const int tile = tid / kGroups, grp = tid % kGroups;
-  const bool computes = tile < kTiles;
-  int ta = 0, tb = 0;
-  if (computes) tile_coords(tile, &ta, &tb);
-
-  float acc[6][6];
-#pragma unroll
-  for (int u = 0; u < 6; ++u)
-#pragma unroll
-    for (int v = 0; v < 6; ++v) acc[u][v] = 0.f;
-
-  for (int base = 0; base < rows_per_block; base += kTile) {
-    {
-      const float* col = data + row0 + base + tid;
-      float v[13];
-#pragma unroll
-      for (int k = 0; k < 13; ++k) v[k] = __ldg(col + k * stride);
-      const float sw = sqrtf(v[12]);
-      const float b[6] = {v[3] * sw, v[4] * sw, v[5] * sw,
-                          v[9] * sw, v[10] * sw, v[11] * sw};
-      const float a[6] = {v[0], v[1], v[2], v[6], v[7], v[8]};  // ps, pt
-#pragma unroll
-      for (int c = 0; c < 6; ++c) m[c * kPitch + tid] = b[c];
-#pragma unroll
-      for (int k = 0; k < 6; ++k)
-#pragma unroll
-        for (int c = 0; c < 6; ++c) m[(6 + 6 * k + c) * kPitch + tid] = a[k] * b[c];
-    }
-    __syncthreads();
-    if (computes) {
-      const float* xa = m + 6 * ta * kPitch;
-      const float* xb = m + 6 * tb * kPitch;
-      for (int r = grp; r < kTile; r += kGroups) {
-        float x[6], y[6];
-#pragma unroll
-        for (int u = 0; u < 6; ++u) {
-          x[u] = xa[u * kPitch + r];
-          y[u] = xb[u * kPitch + r];
-        }
-#pragma unroll
-        for (int u = 0; u < 6; ++u)
-#pragma unroll
-          for (int v = 0; v < 6; ++v) acc[u][v] = fmaf(x[u], y[v], acc[u][v]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // sum the nine row groups of each tile in a fixed order (the staging
-  // buffer is free now: 28*9*36 floats fit in 42*257)
-  float* red = m;
-  if (computes) {
-#pragma unroll
-    for (int u = 0; u < 6; ++u)
-#pragma unroll
-      for (int v = 0; v < 6; ++v) red[(tile * kGroups + grp) * 36 + u * 6 + v] = acc[u][v];
-  }
-  __syncthreads();
-  float* out = parts + (long long)blockIdx.x * kMono * kMono;
-  for (int e = tid; e < kTiles * 36; e += kThreads) {
-    const int te = e / 36, uv = e % 36;
-    float sum = 0.f;
-    for (int g = 0; g < kGroups; ++g) sum += red[(te * kGroups + g) * 36 + uv];
-    int ea = 0, eb = 0;
-    tile_coords(te, &ea, &eb);
-    const int a = 6 * ea + uv / 6, b = 6 * eb + uv % 6;
-    // a diagonal tile holds both (a,b) and (b,a); they are bitwise equal
-    out[a * kMono + b] = sum;
-    out[b * kMono + a] = sum;
-  }
+  moment::gram_block<false>(
+      data, stride, (long long)blockIdx.x * rows_per_block, rows_per_block,
+      parts + (long long)blockIdx.x * moment::kMono * moment::kMono, moment::kMono);
 }
 
 }  // namespace
@@ -131,9 +25,9 @@ moment_gram_kernel(const float* __restrict__ data, long long stride,
 extern "C" int dpt_moment_gram(const void* data, int rows, int row_stride,
                                int rows_per_block, void* parts, int nblocks,
                                void* stream) {
-  if (rows < 13 || rows_per_block <= 0 || rows_per_block % kTile != 0)
+  if (rows < 13 || rows_per_block <= 0 || rows_per_block % moment::kTile != 0)
     return (int)cudaErrorInvalidValue;
-  moment_gram_kernel<<<nblocks, kThreads, 0, (cudaStream_t)stream>>>(
+  moment_gram_kernel<<<nblocks, moment::kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)data, (long long)row_stride, rows_per_block, (float*)parts);
   return (int)cudaGetLastError();
 }

@@ -14,6 +14,8 @@ correspondence group: one pass over the data (the B2 kernel) gives the
 The host float64 functions (``group_row_maps``, ``hb_cost_from_moments``,
 ``se3_exp_np``, ``quat_mul_np``, ``icp_lm_from_moments``) are line-for-line
 copies: importing the JAX package would import jax.
+``hb_cost_from_moments_torch`` is the on-device float32 form, batched over
+the groups, for schedules that keep the whole inner LM on the device.
 
 Monomial layout (42 rows, Kronecker block order):
     0:6                 b = [sqrt(w)*ns (3), sqrt(w)*nt (3)]
@@ -27,7 +29,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from dataset_pipeline_tpu_torch.models.lie import quat_to_matrix_np
+from dataset_pipeline_tpu_torch import resolve_device
+from dataset_pipeline_tpu_torch.models.lie import quat_to_matrix, quat_to_matrix_np
 from dataset_pipeline_tpu_torch.ops.gn import moment_gram_partials
 
 # index arrays into the 42 monomials for each outer-product family,
@@ -129,6 +132,77 @@ def hb_cost_from_moments(P_groups: Sequence[np.ndarray],
         A2[n] = r2
         G += A1 @ P @ A1.T + A2 @ P @ A2.T
     return G[:n, :n], G[:n, n], G[n, n]
+
+
+def _group_row_maps_torch(Rs, ts, Rt, tt):
+    """Batched twin of :func:`group_row_maps` in ``Rs.dtype``: ``Rs, Rt
+    (G,3,3)``, ``ts, tt (G,3)`` -> J1, J2 ``(G,6,42)``, r1, r2 ``(G,42)``."""
+    G, dev, dt = Rs.shape[0], Rs.device, Rs.dtype
+
+    def col_cross(A, B):  # [g, a, e*3+f] = (A[g,:,e] x B[g,:,f])_a
+        c = torch.linalg.cross(A.transpose(1, 2)[:, :, None, :], B.transpose(1, 2)[:, None, :, :],
+                               dim=-1)
+        return c.reshape(G, 9, 3).transpose(1, 2)
+
+    def skew(v):
+        z = torch.zeros_like(v[:, 0])
+        return torch.stack([z, -v[:, 2], v[:, 1], v[:, 2], z, -v[:, 0],
+                            -v[:, 1], v[:, 0], z], -1).reshape(G, 3, 3)
+
+    idx = {k: torch.as_tensor(v, device=dev) for k, v in
+           (("ps_sns", IDX_PS_SNS), ("ps_snt", IDX_PS_SNT), ("pt_sns", IDX_PT_SNS),
+            ("pt_snt", IDX_PT_SNT))}
+    eye9 = torch.eye(3, dtype=dt, device=dev).reshape(9)
+    J1 = torch.zeros((G, 6, 42), dtype=dt, device=dev)
+    J1[:, 0:3, 0:3] = Rs
+    J1[:, 3:6, 0:3] = skew(tt) @ Rs
+    J1[:, 3:6, idx["pt_sns"]] = col_cross(Rt, Rs)
+    r1 = torch.zeros((G, 42), dtype=dt, device=dev)
+    r1[:, 0:3] = (Rs.transpose(1, 2) @ (tt - ts)[:, :, None])[:, :, 0]
+    r1[:, idx["ps_sns"]] = -eye9
+    r1[:, idx["pt_sns"]] = (Rt.transpose(1, 2) @ Rs).reshape(G, 9)
+    J2 = torch.zeros((G, 6, 42), dtype=dt, device=dev)
+    J2[:, 0:3, 3:6] = Rt
+    J2[:, 3:6, 3:6] = skew(ts) @ Rt
+    J2[:, 3:6, idx["ps_snt"]] = col_cross(Rs, Rt)
+    r2 = torch.zeros((G, 42), dtype=dt, device=dev)
+    r2[:, 3:6] = (Rt.transpose(1, 2) @ (ts - tt)[:, :, None])[:, :, 0]
+    r2[:, idx["pt_snt"]] = -eye9
+    r2[:, idx["ps_snt"]] = (Rs.transpose(1, 2) @ Rt).reshape(G, 9)
+    return J1, r1, J2, r2
+
+
+def hb_cost_from_moments_torch(P, group_pairs, q, t, num_clouds: int):
+    """H (6C,6C), b (6C,), cost on ``P``'s device and in its dtype from
+    stacked ``(G, 48, 48)`` (or ``(G, 42, 42)``) moment matrices.
+
+    Counterpart of ``hb_cost_from_moments_jax``: batched over the groups
+    (each group's augmented Gram only touches the (s,s), (s,t), (t,s), (t,t)
+    blocks, the b column and the cost, so the compact 7x7 Grams ``B P B^T``,
+    ``B = [J; r]``, are formed for all groups at once) and scattered by a
+    signed one-hot product in a fixed order. Every product is strict fp32
+    (the package turns TF32 off at import). ``group_pairs``: ``(G, 2)``
+    sequence or integer tensor; a tensor already on the device costs no copy.
+    """
+    C = num_clouds
+    pairs = torch.as_tensor(group_pairs, device=P.device).long()
+    s_idx, t_idx = pairs[:, 0], pairs[:, 1]
+    R = quat_to_matrix(q.to(P.dtype))
+    tr = t.to(P.dtype)
+    J1, r1, J2, r2 = _group_row_maps_torch(R[s_idx], tr[s_idx], R[t_idx], tr[t_idx])
+    B1 = torch.cat([J1, r1[:, None, :]], 1)  # (G, 7, 42)
+    B2 = torch.cat([J2, r2[:, None, :]], 1)
+    Pg = P[:, :42, :42]
+    S1 = B1 @ Pg @ B1.transpose(1, 2)  # (G, 7, 7)
+    S2 = B2 @ Pg @ B2.transpose(1, 2)
+    # A1 rows: block s = -J1, block t = +J1, last row r1 (A2: s = +J2, t = -J2)
+    Hblk = S1[:, :6, :6] + S2[:, :6, :6]
+    bs = S2[:, :6, 6] - S1[:, :6, 6]
+    eye = torch.eye(C, dtype=P.dtype, device=P.device)
+    e = eye[t_idx] - eye[s_idx]  # (G, C): +1 on the target cloud, -1 on the source
+    H = torch.einsum("gc,gd,gab->cadb", e, e, Hblk).reshape(6 * C, 6 * C)
+    b = -torch.einsum("gc,ga->ca", e, bs).reshape(6 * C)
+    return H, b, torch.sum(S1[:, 6, 6] + S2[:, 6, 6])
 
 
 def se3_exp_np(tangent):
@@ -308,6 +382,17 @@ def icp_lm_from_moments(P_groups, group_pairs, num_clouds: int,
     return q, t, cost
 
 
+def _groups_device(groups, device):
+    """The device a function over correspondence groups works on: the one
+    asked for, else the groups' own when they are tensors, else the card
+    (which raises when CUDA is absent: numpy groups name no device)."""
+    if device is not None:
+        return resolve_device(device)
+    if groups and torch.is_tensor(groups[0]["ps"]):
+        return groups[0]["ps"].device
+    return resolve_device("cuda")
+
+
 def pack_group_data(groups, chunk: int = 16384, rows: int = 16, device=None):
     """Pack per-group correspondence arrays into the ``(rows, Mp)`` layout
     with each group padded to a chunk multiple (padding columns have w=0 and
@@ -315,16 +400,17 @@ def pack_group_data(groups, chunk: int = 16384, rows: int = 16, device=None):
 
     ``groups``: list of dicts with ps/ns/pt/nt (Mg,3) float32 arrays or
     tensors and optional 'w'. Returns (data (rows, Mp) float32 tensor on
-    ``device`` (default: the groups' own), chunk_gid (grid,) int32 numpy
-    array mapping each chunk to its group). Same layout as the JAX
-    ``pack_group_data``; ``rows=13`` drops the three zero rows.
+    ``device``, chunk_gid (grid,) int32 numpy array mapping each chunk to
+    its group). ``device`` defaults to the groups' own when they are
+    tensors and to the card when they are numpy arrays (pass ``"cpu"`` for
+    the CPU). Same layout as the JAX ``pack_group_data``; ``rows=13`` drops
+    the three zero rows.
     """
     if rows not in (13, 16):
         raise ValueError(f"rows must be 13 or 16; got {rows}")
     sizes = [len(g["ps"]) for g in groups]
     padded = [m + (-m) % chunk for m in sizes]
-    if device is None:
-        device = torch.as_tensor(groups[0]["ps"]).device if groups else "cpu"
+    device = _groups_device(groups, device)
     data = torch.zeros((rows, sum(padded)), dtype=torch.float32, device=device)
     chunk_gid = []
     ofs = 0
@@ -336,6 +422,16 @@ def pack_group_data(groups, chunk: int = 16384, rows: int = 16, device=None):
         chunk_gid.extend([gi] * (Mp // chunk))
         ofs += Mp
     return data, np.asarray(chunk_gid, np.int32)
+
+
+def group_moments_on_device(parts, parts_per_chunk: int, chunk_gid, n_groups: int):
+    """``(n_groups, 42, 42)`` float32 group moments on ``parts``' device from
+    the partial Grams of a moment pass (``ops/gn.py:moment_gram_partials``):
+    a group's parts are consecutive, and each group is summed in float64."""
+    part_gid = np.repeat(np.asarray(chunk_gid), parts_per_chunk)
+    bounds = np.searchsorted(part_gid, np.arange(n_groups + 1))
+    return torch.stack([parts[a:b].sum(0, dtype=torch.float64)
+                        for a, b in zip(bounds[:-1], bounds[1:])]).to(parts.dtype)
 
 
 def compute_group_moments_from_packed(data, chunk_gid, n_groups: int,
@@ -351,6 +447,6 @@ def compute_group_moments_from_packed(data, chunk_gid, n_groups: int,
 
 def compute_group_moments(groups, chunk: int = 49152, device=None) -> List[np.ndarray]:
     """Per-group 42x42 moment matrices, float64 on the host, through the same
-    packed B2 pass as the engine."""
+    packed B2 pass as the engine; ``device`` as in :func:`pack_group_data`."""
     data, chunk_gid = pack_group_data(groups, chunk, rows=13, device=device)
     return compute_group_moments_from_packed(data, chunk_gid, len(groups), chunk)

@@ -11,7 +11,9 @@ Port of ``dataset_pipeline_tpu/icp/point_to_plane.py``:
   moment accelerator (``icp/moments.py``) runs first when one directly
   accumulated H is well conditioned, and the exact direct LM finishes;
 - LM control: lambda starts at 0.1, halve on accept / double on reject, 10
-  tries as one ladder, stop when no update applies or |x| < threshold.
+  tries as one ladder, stop when no update applies or |x| < threshold;
+- ``use_device_lm``: the whole inner LM with its state in device tensors
+  (``_icp_inner_lm_device``), one host read per iteration.
 
 There is one orchestration path. Correspondences are packed once per outer
 iteration into the group-padded ``(13, Mp)`` tensor on the engine's device
@@ -28,6 +30,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from dataset_pipeline_tpu_torch import resolve_device
 from dataset_pipeline_tpu_torch.icp.moments import (
     compute_group_moments_from_packed,
     icp_lm_from_moments,
@@ -102,6 +105,51 @@ def _icp_cost_batch(qs, ts, ps, ns, pt, nt, src_id, tgt_id, w, chunk: int = 6553
                         for k in range(qs.shape[0])])
 
 
+def _icp_inner_lm_device(q, t, data, chunk_pairs, num_clouds: int, chunk: int,
+                         max_iterations: int, convergence_threshold: float = 1e-7):
+    """The whole inner LM loop with its state (q, t, lambda, applied, dx) in
+    device tensors: H, b and every candidate's cost through the fused B1
+    wrapper on the packed tensor, the damped 6(C-1) solve on the device
+    (float64, as B1 returns H and b), accept/reject by ``torch.where``.
+
+    Counterpart of the JAX ``_icp_inner_lm_device`` with the same trajectory:
+    lambda 0.1, halved on accept and doubled on reject, at most 10 tries per
+    iteration, stop when no try applies or |x| < threshold. PyTorch has no
+    ``while_loop``: the ladder is unrolled with the tries after the accepted
+    one masked out, and the host reads one flag per iteration (``running``),
+    nothing inside the ladder. Returns (q, t, iterations).
+    """
+    C = num_clouds
+    n_var = 6 * (C - 1)
+    dev = data.device
+    eye = torch.eye(n_var, dtype=torch.float64, device=dev)
+    fixed = torch.zeros((1, 6), dtype=torch.float32, device=dev)  # cloud 0: gauge
+    lam = torch.tensor(0.1, dtype=torch.float64, device=dev)
+    it = 0
+    while it < max_iterations:
+        H, b, cost = icp_hb_cost_fused(q, t, data, chunk_pairs, C, chunk)
+        Hv, bv = H[6:, 6:], b[6:, None]
+        applied = torch.zeros((), dtype=torch.bool, device=dev)
+        dx = torch.zeros((), dtype=torch.float64, device=dev)
+        for _ in range(10):
+            # solve_ex does not read its error flag back: a singular system
+            # gives a non-finite step, whose cost compares false and is rejected
+            x = torch.linalg.solve_ex(Hv + lam * eye, bv)[0][:, 0]
+            delta = torch.cat([fixed, -x.reshape(C - 1, 6).to(torch.float32)])
+            cand = SE3.exp(delta).compose(SE3(q, t))
+            new_cost = icp_hb_cost_fused(cand.q, cand.t, data, chunk_pairs, C, chunk)[2]
+            accept = (new_cost < cost) & ~applied
+            q = torch.where(accept, cand.q, q)
+            t = torch.where(accept, cand.t, t)
+            lam = torch.where(applied, lam, torch.where(accept, 0.5 * lam, 2.0 * lam))
+            dx = torch.where(accept, torch.linalg.vector_norm(x), dx)
+            applied = applied | accept
+        it += 1
+        if not bool(applied & (dx >= convergence_threshold)):
+            break
+    return q, t, it
+
+
 # ---------------------------------------------------------------------------
 # Host orchestration
 # ---------------------------------------------------------------------------
@@ -132,18 +180,23 @@ class PointToPlaneICP:
     """Multi-cloud symmetric point-to-plane ICP (API mirrors the reference's
     ``PointToPlaneICP::AddPointCloud/Run``; ``run`` returns the poses).
 
-    ``device``: where correspondences are searched and H,b accumulated.
-    ``timings``: optional dict that collects per-stage seconds
-    (``correspondences``, ``moment_pass``, ``moment_lm``, ``direct_lm``).
+    ``use_device_lm``: run the whole inner LM on the device
+    (``_icp_inner_lm_device``) instead of the moment accelerator and the
+    host-solved direct LM. ``device``: where correspondences are searched
+    and H,b accumulated; the card unless the caller names another (it raises
+    when CUDA is absent). ``timings``: optional dict that collects per-stage
+    seconds (``correspondences``, ``moment_pass``, ``moment_lm``,
+    ``direct_lm``, ``device_lm``).
     """
 
-    def __init__(self, use_moments: bool = True, device="cpu",
-                 timings: Optional[dict] = None):
+    def __init__(self, use_device_lm: bool = False, use_moments: bool = True,
+                 device="cuda", timings: Optional[dict] = None):
         self._clouds: List[Tuple[np.ndarray, np.ndarray]] = []  # local points, normals
         self._poses: List[np.ndarray] = []  # global_T_cloud (4,4)
         self._fixed: List[Tuple[np.ndarray, np.ndarray]] = []  # global frame
+        self.use_device_lm = use_device_lm
         self.use_moments = use_moments
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.timings = timings
 
     def add_point_cloud(self, points, normals, global_T_cloud=None, fixed=False):
@@ -230,6 +283,13 @@ class PointToPlaneICP:
         n_var = 6 * (C - 1)
         if n_var == 0:
             return q.cpu().numpy(), t.cpu().numpy(), cost_of(q, t)
+
+        if self.use_device_lm:
+            with stage(self.timings, "device_lm", dev):
+                q, t, _ = _icp_inner_lm_device(q, t, data, chunk_pairs, C, chunk,
+                                               max_iterations, convergence_threshold)
+                final_cost = cost_of(q, t)
+            return q.cpu().numpy(), t.cpu().numpy(), final_cost
 
         if self.use_moments:
             # Moment accelerator, GATED on conditioning: one directly

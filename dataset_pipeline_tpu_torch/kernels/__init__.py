@@ -22,6 +22,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -34,18 +35,54 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# entry point -> argument types (pointers and the stream as void*, ints as
-# int, 64-bit sizes as long long)
-_SIGNATURES = {
-    "dpt_gn_fused": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P],
-    "dpt_moment_gram": [_P, _I, _I, _I, _P, _I, _P],
-    "dpt_pyramid_sample": [_P, _L, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+_JAX = "dataset_pipeline_tpu/ops/pallas_gn.py"
+
+
+class Kernel(NamedTuple):
+    """One hand-written kernel: its C entry point with the argument types
+    (pointers and the stream as void*, ints as int, 64-bit sizes as long
+    long), its source under ``csrc/``, the TPU kernel it replaces
+    (file:line) and the launch counters of its wrapper."""
+
+    entry: str
+    argtypes: list
+    source: str
+    replaces: str
+    counters: Tuple[str, ...]
+
+
+# the one table of the port's kernels: a new kernel is one row here
+KERNELS = {
+    "gn_fused": Kernel(  # B1, ops/gn.py:icp_hb_cost_fused
+        "dpt_gn_fused", [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P],
+        "gn_fused.cu", f"{_JAX}:160", ("gn_fused",)),
+    "moment_gram": Kernel(  # B2, ops/gn.py:moment_gram_partials
+        "dpt_moment_gram", [_P, _I, _I, _I, _P, _I, _P],
+        "moment_gram.cu", f"{_JAX}:360", ("moment_gram",)),
+    "pyramid_sample": Kernel(  # B3, ops/pyramid_sample.py:pyramid_sample
+        "dpt_pyramid_sample", [_P, _L, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+        "pyramid_sample.cu", "dataset_pipeline_tpu/ops/brick.py:135",
+        ("pyramid_sample_derivs", "pyramid_sample_value")),
+    "gn_rows": Kernel(  # B4a, ops/gn.py:gn_rows
+        "dpt_gn_rows", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P],
+        "gn_rows.cu", f"{_JAX}:34", ("gn_rows",)),
+    "moment_gram48": Kernel(  # B4b, ops/gn.py:moment_gram48
+        "dpt_moment_gram48", [_P, _I, _I, _I, _P, _I, _P],
+        "moment_gram48.cu", f"{_JAX}:270", ("moment_gram48",)),
+    "moment_gram_thirds": Kernel(  # B4c, ops/gn.py:moment_gram_thirds
+        "dpt_moment_gram_thirds", [_P, _I, _I, _I, _P, _I, _P],
+        "moment_gram_thirds.cu", f"{_JAX}:322", ("moment_gram_thirds",)),
+    "moment_gram_repeat": Kernel(  # B5a, ops/gn.py:moment_gram_repeat
+        "dpt_moment_gram_repeat", [_P, _I, _I, _I, _P, _I, _I, _P],
+        "moment_gram_repeat.cu", f"{_JAX}:420", ("moment_gram_repeat",)),
+    "hbm_read_sum": Kernel(  # B5b, ops/hbm.py:hbm_read_sum
+        "dpt_hbm_read_sum", [_P, _L, _I, _I, _P, _I, _P, _P],
+        "hbm_read_sum.cu", "bench.py:155", ("hbm_read_sum",)),
 }
 
 # kernel launches per wrapper variant (never the plain versions): a run
 # resets them and reads them after, to show which kernels it went through
-LAUNCHES = {"gn_fused": 0, "moment_gram": 0,
-            "pyramid_sample_derivs": 0, "pyramid_sample_value": 0}
+LAUNCHES = {c: 0 for k in KERNELS.values() for c in k.counters}
 
 
 def reset_launch_counts() -> None:
@@ -137,9 +174,9 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
+        for k in KERNELS.values():
+            fn = getattr(lib, k.entry)
+            fn.argtypes = k.argtypes
             fn.restype = ctypes.c_int
         lib.dpt_error_string.argtypes = [ctypes.c_int]
         lib.dpt_error_string.restype = ctypes.c_char_p

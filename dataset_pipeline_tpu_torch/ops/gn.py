@@ -1,7 +1,18 @@
-"""ICP Gauss-Newton kernels: fused H,b,cost (B1) and the moment Gram (B2).
+"""ICP Gauss-Newton kernels (B1, B2, B4a, B4b, B4c, B5a) and their plain versions.
 
-Counterpart of ``dataset_pipeline_tpu/ops/pallas_gn.py``. Both kernels read
-the packed correspondence tensor ``data (rows >= 13, Mp)`` float32, one
+Counterpart of ``dataset_pipeline_tpu/ops/pallas_gn.py``. ``kernels.KERNELS``
+is the table of the port's kernels (entry point, source, the TPU kernel
+each replaces, launch counters); the wrappers here are
+
+- ``icp_hb_cost_fused`` (B1) and ``icp_hb_cost_rows`` / ``gn_rows`` (B4a):
+  H, b, cost of the symmetric point-to-plane residuals, fused from the
+  packed tensor with per-chunk cloud pairs, or from precomputed Jacobian
+  rows with per-row cloud ids;
+- ``moment_gram_partials`` (B2), ``moment_gram48`` (B4b),
+  ``moment_gram_thirds`` (B4c) and ``moment_gram_repeat`` (B5a, the timing
+  harness): the monomial moment Gram of the packed tensor.
+
+The packed correspondence tensor is ``data (rows >= 13, Mp)`` float32, one
 column per correspondence: rows ``[ps(3); ns(3); pt(3); nt(3); w]`` in the
 clouds' local frames, grouped so that every ``chunk`` columns belong to one
 ordered cloud pair (``icp/moments.py:pack_group_data``; padding columns have
@@ -20,14 +31,21 @@ from __future__ import annotations
 import torch
 
 from dataset_pipeline_tpu_torch.kernels import LAUNCHES, reset_launch_counts  # noqa: F401
-from dataset_pipeline_tpu_torch.models.lie import quat_to_matrix
+from dataset_pipeline_tpu_torch.models.lie import quat_rotate, quat_to_matrix
 
 PACKED_ROWS = 13  # rows the kernels read: ps, ns, pt, nt, w
 N_MONO = 42
+# what one correspondence's Gram needs: the 903 FMAs of a 42x42 upper
+# triangle and the 43 operations that build the monomials
+MOMENT_FLOPS_PER_ROW = 2 * 903 + 43
 
 _GN_BLOCK_ROWS = (2048, 1024, 512, 256)  # rows per block of the B1 kernel
 _MOMENT_TILE = 256  # rows staged per pass by the B2 kernel
 _MOMENT_MAX_ROWS = 8192  # rows per block of the B2 kernel, at most
+_ROWS_COLS_PER_BLOCK = 4096  # columns per block of the B4a kernel
+_ROWS_SMEM_FLOATS = 12032  # staging floats of the B4a kernel (csrc/gn_rows.cu)
+_ROWS_MAX_CLOUDS = 14  # its 4x4 output tiles must not outnumber its 256 threads
+_ROWS_PLAIN_CHUNK = 65536  # columns per product of the B4a plain version
 
 
 def pack_icp_inputs(ps, ns, pt, nt, w, chunk: int = 16384, rows: int = 16):
@@ -199,10 +217,7 @@ def moment_gram_partials(data, chunk: int):
 
     lib = kernels.library()
     Mp = data.shape[1]
-    if chunk % _MOMENT_TILE != 0:
-        raise ValueError(f"chunk={chunk} must be a multiple of {_MOMENT_TILE} on CUDA")
-    rows_per_block = _largest_divisor(
-        chunk, range(min(chunk, _MOMENT_MAX_ROWS), 0, -_MOMENT_TILE))
+    rows_per_block = _moment_rows_per_block(chunk)
     nblocks = Mp // rows_per_block
     parts = torch.empty((nblocks, N_MONO, N_MONO), dtype=torch.float32, device=data.device)
     err = lib.dpt_moment_gram(
@@ -211,3 +226,229 @@ def moment_gram_partials(data, chunk: int):
     kernels.check(err, "dpt_moment_gram")
     LAUNCHES["moment_gram"] += 1
     return parts, chunk // rows_per_block
+
+
+def _moment_rows_per_block(chunk: int) -> int:
+    if chunk % _MOMENT_TILE != 0:
+        raise ValueError(f"chunk={chunk} must be a multiple of {_MOMENT_TILE} on CUDA")
+    return _largest_divisor(chunk, range(min(chunk, _MOMENT_MAX_ROWS), 0, -_MOMENT_TILE))
+
+
+# ---------------------------------------------------------------------------
+# B4b, B4c: the earlier generations of the moment Gram
+# ---------------------------------------------------------------------------
+
+
+def moment_gram48_plain(data, chunk: int):
+    """Plain PyTorch version of the B4b kernel: ``(Mp//chunk, 48, 48)`` in
+    ``data.dtype``, rows and columns 42..47 zero."""
+    return torch.nn.functional.pad(moment_gram_plain(data, chunk), (0, 6, 0, 6))
+
+
+def moment_gram48(data, chunk: int = 16384):
+    """Per-chunk monomial Grams ``(Mp//chunk, 48, 48)`` float32 of the packed
+    tensor, one part per chunk, zero-padded from 42 as the JAX output is.
+
+    Counterpart of ``icp_moment_pallas``.
+    """
+    G = _check_packed(data, chunk)
+    if data.device.type == "cpu":
+        return moment_gram48_plain(data, chunk)
+
+    from dataset_pipeline_tpu_torch import kernels
+
+    parts = torch.empty((G, 48, 48), dtype=torch.float32, device=data.device)
+    err = kernels.library().dpt_moment_gram48(
+        data.data_ptr(), data.shape[0], data.shape[1], chunk, parts.data_ptr(), G,
+        torch.cuda.current_stream(data.device).cuda_stream)
+    kernels.check(err, "dpt_moment_gram48")
+    LAUNCHES["moment_gram48"] += 1
+    return parts
+
+
+def moment_gram_thirds_plain(data, chunk: int):
+    """Plain PyTorch version of the B4c kernel: ``(Mp//chunk, 3, 42, 42)`` in
+    ``data.dtype``, the Gram of each column-third of each chunk."""
+    return moment_gram_plain(data, chunk // 3).reshape(-1, 3, N_MONO, N_MONO)
+
+
+def moment_gram_thirds(data, chunk: int = 24576):
+    """Per chunk of the packed tensor, the monomial Grams of its three
+    column-thirds: ``(Mp//chunk, 3, 42, 42)`` float32; ``chunk`` must be a
+    multiple of 3. :func:`moment_tri_extract` sums them into the chunk's Gram.
+
+    Counterpart of ``icp_moment_pallas_tri``, whose ``(128, 128)`` output per
+    chunk carries these three Grams on its diagonal blocks; the off-diagonal
+    blocks, which its callers discard, are not computed.
+    """
+    G = _check_packed(data, chunk)
+    if chunk % 3 != 0:
+        raise ValueError(f"chunk={chunk} must be a multiple of 3")
+    if data.device.type == "cpu":
+        return moment_gram_thirds_plain(data, chunk)
+
+    from dataset_pipeline_tpu_torch import kernels
+
+    parts = torch.empty((G, 3, N_MONO, N_MONO), dtype=torch.float32, device=data.device)
+    err = kernels.library().dpt_moment_gram_thirds(
+        data.data_ptr(), data.shape[0], data.shape[1], chunk, parts.data_ptr(), G,
+        torch.cuda.current_stream(data.device).cuda_stream)
+    kernels.check(err, "dpt_moment_gram_thirds")
+    LAUNCHES["moment_gram_thirds"] += 1
+    return parts
+
+
+def moment_tri_extract(parts):
+    """``(grid, 3, 42, 42)`` per-third Grams -> ``(grid, 42, 42)`` chunk Grams
+    (tensor or numpy array)."""
+    return parts[:, 0] + parts[:, 1] + parts[:, 2]
+
+
+# ---------------------------------------------------------------------------
+# B5a: the moment Gram over a repeat axis (timing harness)
+# ---------------------------------------------------------------------------
+
+
+def moment_gram_repeat_plain(data2, chunk: int, repeats: int):
+    """Plain PyTorch version of the B5a kernel: repeat ``r`` adds the Grams of
+    copy ``r % 2``, in ``data2.dtype``."""
+    n0, n1 = (repeats + 1) // 2, repeats // 2
+    out = n0 * moment_gram_plain(data2[0], chunk)
+    return out + n1 * moment_gram_plain(data2[1], chunk) if n1 else out
+
+
+def moment_gram_repeat(data2, chunk: int = 49152, repeats: int = 1):
+    """``(parts (n, 42, 42) float32, parts_per_chunk)`` with
+    ``parts = sum_r Gram(data2[r % 2])`` over ``repeats`` passes, partitioned
+    as :func:`moment_gram_partials` does; ``data2`` is ``(2, rows, Mp)``.
+
+    Every repeat sweeps one whole copy from device memory, so
+    ``(T(repeats=R) - T(repeats=1)) / (R - 1)`` is the time of one moment
+    pass without launch or host overhead. Counterpart of
+    ``icp_moment_pallas_tri_sub_timed``.
+    """
+    if data2.dim() != 3 or data2.shape[0] != 2:
+        raise ValueError(f"data2 must be (2, rows, Mp); got {tuple(data2.shape)}")
+    if not data2.is_contiguous():
+        raise ValueError("data2 must be contiguous")
+    if repeats < 1:
+        raise ValueError(f"repeats={repeats} must be >= 1")
+    _check_packed(data2[0], chunk)
+    if data2.device.type == "cpu":
+        return moment_gram_repeat_plain(data2, chunk, repeats), 1
+
+    from dataset_pipeline_tpu_torch import kernels
+
+    Mp = data2.shape[2]
+    rows_per_block = _moment_rows_per_block(chunk)
+    nblocks = Mp // rows_per_block
+    parts = torch.empty((nblocks, N_MONO, N_MONO), dtype=torch.float32, device=data2.device)
+    err = kernels.library().dpt_moment_gram_repeat(
+        data2.data_ptr(), data2.shape[1], Mp, rows_per_block, parts.data_ptr(), nblocks,
+        repeats, torch.cuda.current_stream(data2.device).cuda_stream)
+    kernels.check(err, "dpt_moment_gram_repeat")
+    LAUNCHES["moment_gram_repeat"] += 1
+    return parts, chunk // rows_per_block
+
+
+# ---------------------------------------------------------------------------
+# B4a: H, b, cost from precomputed rows with per-row cloud ids
+# ---------------------------------------------------------------------------
+
+
+def gn_rows_prep(q, t, ps, ns, pt, nt, sid, tid):
+    """The elementwise pass before the B4a kernel (plain PyTorch on both
+    sides, as it is XLA in the JAX package): global-frame Jacobian vectors
+    ``j1 = [n_s; p_t x n_s]``, ``j2 = [n_t; p_s x n_t]`` as ``(6, M)`` and
+    residuals ``r1, r2 (M,)`` of ``(M, 3)`` correspondences."""
+    sid, tid = sid.long(), tid.long()
+    gps = quat_rotate(q[sid], ps) + t[sid]
+    gns = quat_rotate(q[sid], ns)
+    gpt = quat_rotate(q[tid], pt) + t[tid]
+    gnt = quat_rotate(q[tid], nt)
+    diff = gpt - gps
+    r1 = torch.sum(gns * diff, -1)
+    r2 = -torch.sum(gnt * diff, -1)
+    j1 = torch.cat([gns, torch.linalg.cross(gpt, gns, dim=-1)], -1).T.contiguous()
+    j2 = torch.cat([gnt, torch.linalg.cross(gps, gnt, dim=-1)], -1).T.contiguous()
+    return j1, j2, r1, r2
+
+
+def gn_rows_plain(j1, j2, r1, r2, sid, tid, w, num_clouds: int):
+    """Plain PyTorch version of the B4a kernel: H (6C,6C), b (6C,), cost as
+    float64 tensors; the products run in ``j1.dtype`` per 65536 columns and
+    are added in float64."""
+    C = num_clouds
+    n = 6 * C
+    G = torch.zeros((n + 1, n + 1), dtype=torch.float64, device=j1.device)
+    clouds = torch.arange(C, device=j1.device)[:, None]
+    for s in range(0, j1.shape[1], _ROWS_PLAIN_CHUNK):
+        sl = slice(s, s + _ROWS_PLAIN_CHUNK)
+        s1 = ((tid[sl][None] == clouds).to(j1.dtype) - (sid[sl][None] == clouds).to(j1.dtype))
+        sw = torch.sqrt(w[sl])
+        A1 = torch.cat([(s1[:, None] * j1[None, :, sl]).reshape(n, -1), r1[None, sl]]) * sw
+        A2 = torch.cat([(-s1[:, None] * j2[None, :, sl]).reshape(n, -1), r2[None, sl]]) * sw
+        G += (A1 @ A1.T + A2 @ A2.T).double()
+    return G[:n, :n], G[:n, n], G[n, n]
+
+
+def gn_rows(j1, j2, r1, r2, sid, tid, w, num_clouds: int):
+    """H (6C,6C), b (6C,), cost (float64 tensors) from precomputed rows:
+    ``j1, j2 (6, M)`` and ``r1, r2, w (M,)`` float32, ``sid, tid (M,)`` int32
+    cloud ids that may change from row to row. A row whose ids are equal or
+    out of range adds to the cost only, as in the JAX kernel."""
+    M = j1.shape[1] if j1.dim() == 2 else -1
+    C = num_clouds
+    for name, x, shape, dtype in (("j1", j1, (6, M), torch.float32), ("j2", j2, (6, M), torch.float32),
+                                  ("r1", r1, (M,), torch.float32), ("r2", r2, (M,), torch.float32),
+                                  ("w", w, (M,), torch.float32), ("sid", sid, (M,), torch.int32),
+                                  ("tid", tid, (M,), torch.int32)):
+        if M <= 0 or tuple(x.shape) != shape or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous {dtype} {shape}; got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if x.device != j1.device:
+            raise ValueError(f"all inputs must be on {j1.device}; got {x.device}")
+    if C < 1:
+        raise ValueError(f"num_clouds={C} must be >= 1")
+    if j1.device.type == "cpu":
+        return gn_rows_plain(j1, j2, r1, r2, sid, tid, w, C)
+    if j1.device.type != "cuda":
+        raise ValueError(f"unsupported device {j1.device}")
+    if C > _ROWS_MAX_CLOUDS:
+        raise ValueError(f"num_clouds={C} > {_ROWS_MAX_CLOUDS}: the kernel's output tiles "
+                         "would outnumber its threads")
+
+    from dataset_pipeline_tpu_torch import kernels
+
+    lib = kernels.library()
+    S = 6 * C + 1
+    nt = (S + 3) // 4
+    # the widest staged tile (a multiple of 32 columns) whose two operands fit
+    tile_cols = min(256, (_ROWS_SMEM_FLOATS // (8 * nt) - 1) // 32 * 32)
+    nblocks = -(-M // _ROWS_COLS_PER_BLOCK)
+    partials = torch.empty((nblocks, nt * (nt + 1) // 2 * 16), dtype=torch.float32,
+                           device=j1.device)
+    out = torch.empty((S, S), dtype=torch.float64, device=j1.device)
+    err = lib.dpt_gn_rows(
+        j1.data_ptr(), j2.data_ptr(), r1.data_ptr(), r2.data_ptr(), sid.data_ptr(),
+        tid.data_ptr(), w.data_ptr(), M, C, _ROWS_COLS_PER_BLOCK, tile_cols,
+        partials.data_ptr(), nblocks, out.data_ptr(),
+        torch.cuda.current_stream(j1.device).cuda_stream)
+    kernels.check(err, "dpt_gn_rows")
+    LAUNCHES["gn_rows"] += 1
+    n = 6 * C
+    return out[:n, :n], out[:n, n], out[n, n]
+
+
+def icp_hb_cost_rows(q, t, ps, ns, pt, nt, sid, tid, w, num_clouds: int):
+    """H, b, cost (float64 tensors) of ``(M, 3)`` global-frame
+    correspondences with per-row cloud ids at corrections ``q (C,4)``,
+    ``t (C,3)``: the plain prep pass, then the B4a kernel.
+
+    Counterpart of ``icp_hb_cost_pallas`` with the same argument order; it
+    has no ``chunk``, since the kernel masks its ragged last block and
+    nothing is padded.
+    """
+    j1, j2, r1, r2 = gn_rows_prep(q, t, ps, ns, pt, nt, sid, tid)
+    return gn_rows(j1, j2, r1, r2, sid.to(torch.int32).contiguous(),
+                   tid.to(torch.int32).contiguous(), w.contiguous(), num_clouds)

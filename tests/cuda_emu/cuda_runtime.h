@@ -7,7 +7,8 @@
 // The round-to-nearest intrinsics are the plain operators (g++ does not
 // contract them into FMAs for the baseline x86-64 target). The test rewrites
 // `kernel<<<grid, block, 0, stream>>>(args)` into `emu_launch(kernel, grid,
-// block, args)`. Warp-level intrinsics are not emulated.
+// block, args)`; a kernel may be a template instantiation. `float4` is a plain
+// struct of four floats. Warp-level intrinsics are not emulated.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -20,6 +21,10 @@ using std::max;
 using std::min;
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
+
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
 
 struct dim3 {
   unsigned x, y, z;

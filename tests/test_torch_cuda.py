@@ -144,3 +144,101 @@ def test_pyramid_sample_rejects_non_float32(cuda_device):
     tps, flat, layout, pix, scale = _b3_inputs(cuda_device, 1, 40, 50, 2, 100, 1)
     with pytest.raises(ValueError, match="float32"):
         tps.pyramid_sample(flat.double(), layout, pix, scale)
+
+
+# ---------------------------------------------------------------------------
+# B4a, B4b, B4c, B5a, B5b
+# ---------------------------------------------------------------------------
+
+
+def _packed_cuda(device, chunk, sizes, seed, rows=13):
+    groups, _ = _groups(np.random.RandomState(seed), 2, sizes)
+    return tm.pack_group_data(groups, chunk=chunk, rows=rows, device=device)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C,M", [(1, 900), (2, 100_000), (3, 4096), (5, 70_001), (14, 9000)])
+def test_gn_rows_kernel_matches_plain(cuda_device, C, M):
+    rng = np.random.RandomState(80 + C)
+    j1, j2 = (torch.from_numpy(rng.randn(6, M).astype(np.float32)).to(cuda_device) for _ in range(2))
+    r1, r2 = (torch.from_numpy((0.1 * rng.randn(M)).astype(np.float32)).to(cuda_device)
+              for _ in range(2))
+    sid = rng.randint(0, C, M).astype(np.int32)
+    tid = torch.from_numpy(((sid + rng.randint(0, C, M)) % C).astype(np.int32)).to(cuda_device)
+    sid = torch.from_numpy(sid).to(cuda_device)
+    w = torch.from_numpy(np.where(rng.rand(M) < 0.5, rng.rand(M) > 0.2, rng.rand(M))
+                         .astype(np.float32)).to(cuda_device)
+    n0 = gn.LAUNCHES["gn_rows"]
+    got = [x.cpu().numpy() for x in gn.gn_rows(j1, j2, r1, r2, sid, tid, w, C)]
+    assert gn.LAUNCHES["gn_rows"] == n0 + 1
+    again = [x.cpu().numpy() for x in gn.gn_rows(j1, j2, r1, r2, sid, tid, w, C)]
+    ref = [x.cpu().numpy() for x in gn.gn_rows_plain(j1.double(), j2.double(), r1.double(),
+                                                     r2.double(), sid, tid, w.double(), C)]
+    for g, a, r in zip(got, again, ref):
+        np.testing.assert_array_equal(g, a)
+        np.testing.assert_allclose(g, r, rtol=0, atol=1e-5 * max(np.abs(r).max(), 1e-30))
+    with pytest.raises(ValueError, match="num_clouds"):
+        gn.gn_rows(j1, j2, r1, r2, sid, tid, w, 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [128, 384, 16384])
+def test_moment_gram48_kernel_matches_plain(cuda_device, chunk):
+    data = _packed_cuda(cuda_device, chunk, [5000, 30000], 61, rows=16)
+    n0 = gn.LAUNCHES["moment_gram48"]
+    got = gn.moment_gram48(data, chunk)
+    assert gn.LAUNCHES["moment_gram48"] == n0 + 1
+    assert torch.equal(got, gn.moment_gram48(data, chunk))
+    assert not got[:, 42:, :].any() and not got[:, :, 42:].any()
+    ref = gn.moment_gram48_plain(data.double(), chunk).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0, atol=2e-5 * np.abs(ref).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,rows", [(384, 13), (768, 16), (24576, 13), (49152, 13)])
+def test_moment_gram_thirds_kernel_matches_plain(cuda_device, chunk, rows):
+    data = _packed_cuda(cuda_device, chunk, [5000, 60000], 62, rows=rows)
+    n0 = gn.LAUNCHES["moment_gram_thirds"]
+    got = gn.moment_gram_thirds(data, chunk)
+    assert gn.LAUNCHES["moment_gram_thirds"] == n0 + 1
+    assert torch.equal(got, gn.moment_gram_thirds(data, chunk))
+    ref = gn.moment_gram_thirds_plain(data.double(), chunk).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0, atol=2e-5 * np.abs(ref).max())
+    whole = gn.moment_gram_plain(data.double(), chunk).cpu().numpy()
+    np.testing.assert_allclose(gn.moment_tri_extract(got.double()).cpu().numpy(), whole, rtol=0,
+                               atol=2e-5 * np.abs(whole).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeats", [1, 2, 5])
+def test_moment_gram_repeat_kernel_matches_plain(cuda_device, repeats):
+    chunk = 2048
+    data2 = torch.stack([_packed_cuda(cuda_device, chunk, [5000, 30000], s) for s in (63, 64)])
+    n0 = gn.LAUNCHES["moment_gram_repeat"]
+    got, per_chunk = gn.moment_gram_repeat(data2, chunk, repeats)
+    assert gn.LAUNCHES["moment_gram_repeat"] == n0 + 1
+    assert torch.equal(got, gn.moment_gram_repeat(data2, chunk, repeats)[0])
+    got = got.double().reshape(-1, per_chunk, 42, 42).sum(1).cpu().numpy()
+    ref = gn.moment_gram_repeat_plain(data2.double(), chunk, repeats).cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=2e-5 * np.abs(ref).max())
+    if repeats == 1:  # one repeat is the B2 kernel, bit for bit
+        assert torch.equal(gn.moment_gram_repeat(data2, chunk, 1)[0],
+                           gn.moment_gram_partials(data2[0], chunk)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mp,repeats", [(4, 1), (5000, 3), (1 << 20, 1), (1 << 20, 4)])
+def test_hbm_read_sum_kernel_matches_plain(cuda_device, mp, repeats):
+    from dataset_pipeline_tpu_torch import kernels
+    from dataset_pipeline_tpu_torch.ops import hbm
+
+    data2 = torch.from_numpy(np.random.RandomState(65).randn(2, 8, mp).astype(np.float32)).to(cuda_device)
+    n0 = kernels.LAUNCHES["hbm_read_sum"]
+    got = hbm.hbm_read_sum(data2, repeats)
+    assert kernels.LAUNCHES["hbm_read_sum"] == n0 + 1
+    assert torch.equal(got, hbm.hbm_read_sum(data2, repeats))
+    ref = hbm.hbm_read_sum_plain(data2.double(), repeats).cpu().numpy()
+    np.testing.assert_allclose(got.cpu().numpy(), ref, rtol=0,
+                               atol=1e-5 * float(data2.abs().sum(2).max()))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        hbm.hbm_read_sum(data2[:, :, : mp - 1].contiguous(), 1)

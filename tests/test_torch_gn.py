@@ -64,7 +64,7 @@ def test_pack_icp_inputs_layout():
 def test_pack_group_data_layout(rows):
     groups, _ = _groups(np.random.RandomState(1), 3, [100, 257, 40])
     ref, ref_gid = jm.pack_group_data(groups, chunk=128, rows=rows)
-    got, gid = tm.pack_group_data(groups, chunk=128, rows=rows)
+    got, gid = tm.pack_group_data(groups, chunk=128, rows=rows, device="cpu")
     np.testing.assert_array_equal(got.numpy(), ref)
     np.testing.assert_array_equal(gid, ref_gid)
 
@@ -80,7 +80,7 @@ def test_b1_plain_matches_pallas_fused_interpret(C):
     Hj, bj, cj = jp.icp_hb_cost_pallas_fused(
         jnp.asarray(q), jnp.asarray(t), jnp.asarray(data16), jnp.asarray(pair_rows[:, 0]),
         jnp.asarray(pair_rows[:, 1]), num_clouds=C, chunk=chunk, interpret=True)
-    data, _ = tm.pack_group_data(groups, chunk=chunk, rows=13)
+    data, _ = tm.pack_group_data(groups, chunk=chunk, rows=13, device="cpu")
     cp = torch.as_tensor(np.asarray(pairs, np.int32)[gid])
     H, b, c = gn.icp_hb_cost_fused(torch.from_numpy(q), torch.from_numpy(t), data, cp, C, chunk)
     np.testing.assert_allclose(H.numpy(), np.asarray(Hj), rtol=1e-4, atol=1e-2)
@@ -102,7 +102,7 @@ def test_b1_plain_matches_direct_accumulation():
     Hj, bj, cj = j_icp_hb_cost(jnp.asarray(q), jnp.asarray(t), *[jnp.asarray(a) for a in args], C)
     Ht, bt, ct = tpp._icp_hb_cost(torch.from_numpy(q), torch.from_numpy(t),
                                   *[torch.from_numpy(a) for a in args], C, chunk=128)
-    data, gid = tm.pack_group_data(groups, chunk=256, rows=13)
+    data, gid = tm.pack_group_data(groups, chunk=256, rows=13, device="cpu")
     cp = torch.as_tensor(np.asarray(pairs, np.int32)[gid])
     H, b, c = gn.gn_fused_plain(torch.from_numpy(q), torch.from_numpy(t), data, cp, C, 256)
     for got in ((Ht, bt, ct), (H, b, c)):
@@ -132,7 +132,7 @@ def test_b2_plain_matches_pallas_tri_sub_interpret():
     data16, gid = jm.pack_group_data(groups, chunk=chunk)
     ref = np.asarray(jp.moment_tri_extract(np.asarray(jp.icp_moment_pallas_tri_sub(
         jnp.asarray(data16), chunk=chunk, sub=128, interpret=True), np.float64)))
-    data, _ = tm.pack_group_data(groups, chunk=chunk, rows=13)
+    data, _ = tm.pack_group_data(groups, chunk=chunk, rows=13, device="cpu")
     parts, per_chunk = gn.moment_gram_partials(data, chunk)
     assert per_chunk == 1 and parts.shape == (len(gid), 42, 42)
     got = parts.double().numpy()
@@ -148,7 +148,7 @@ def test_b2_plain_matches_pallas_tri_sub_interpret():
 def test_cpu_wrappers_take_the_plain_versions_without_counting():
     rng = np.random.RandomState(40)
     groups, pairs = _groups(rng, 2, [300])
-    data, gid = tm.pack_group_data(groups, chunk=256, rows=13)
+    data, gid = tm.pack_group_data(groups, chunk=256, rows=13, device="cpu")
     cp = torch.as_tensor(np.asarray(pairs, np.int32)[gid])
     q, t = (torch.from_numpy(x) for x in _poses(rng, 2))
     before = dict(gn.LAUNCHES)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from dataset_pipeline_tpu_torch import kernels
 from dataset_pipeline_tpu_torch.icp import moments as tm
 from dataset_pipeline_tpu_torch.ops import gn
 from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
@@ -24,8 +25,7 @@ from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
 torch.set_num_threads(2)
 CSRC = Path(gn.__file__).resolve().parent.parent / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_LAUNCH = re.compile(r"(\w+)<<<([^,]+),\s*([^,]+),\s*0,\s*([^>]+)>>>\(")
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<([^,]+),\s*([^,]+),\s*0,\s*([^>]+)>>>\(")
 
 
 @pytest.fixture(scope="module")
@@ -35,6 +35,8 @@ def emu(tmp_path_factory):
         pytest.skip("no g++ to compile the emulated kernels")
     out = tmp_path_factory.mktemp("cuda_emu")
     srcs = []
+    for cuh in CSRC.glob("*.cuh"):  # found by the sources' quoted includes
+        (out / cuh.name).write_text(cuh.read_text())
     for cu in sorted(CSRC.glob("*.cu")):
         cpp = out / (cu.stem + ".cpp")
         cpp.write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, ", cu.read_text()))
@@ -47,11 +49,9 @@ def emu(tmp_path_factory):
         pytest.skip("g++ lacks C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr
     so = ctypes.CDLL(str(lib))
-    so.dpt_gn_fused.argtypes = [_P, _I, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P]
-    so.dpt_moment_gram.argtypes = [_P, _I, _I, _I, _P, _I, _P]
-    so.dpt_pyramid_sample.argtypes = [_P, _L, _I, _P, _P, _P, _I, _P, _P, _I, _I,
-                                      _P, _P, _P, _P, _P, _P]
-    so.dpt_gn_fused.restype = so.dpt_moment_gram.restype = so.dpt_pyramid_sample.restype = _I
+    for k in kernels.KERNELS.values():  # the argument types the port itself binds
+        fn = getattr(so, k.entry)
+        fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
     return so
 
 
@@ -71,7 +71,7 @@ def _packed(C, sizes, chunk, seed):
                                "nt": (nt / np.linalg.norm(nt, axis=1, keepdims=True)).astype(np.float32),
                                "w": rng.rand(m).astype(np.float32)})
                 pairs.append((s, tg))
-    data, gid = tm.pack_group_data(groups, chunk, rows=13)
+    data, gid = tm.pack_group_data(groups, chunk, rows=13, device="cpu")
     cp = torch.as_tensor(np.asarray(pairs, np.int32)[gid])
     qt = [tm.se3_exp_np(0.3 * rng.randn(6)) for _ in range(C)]
     q = torch.tensor(np.stack([a for a, _ in qt]), dtype=torch.float32)
@@ -193,3 +193,119 @@ def test_pyramid_sample_entry_point_rejects_bad_arguments(emu):
     assert emu.dpt_pyramid_sample(flat.data_ptr(), 80, 1, hs, ws, offs, 0, *args) != 0
     derivs = args[:3] + (1,) + args[4:]  # derivatives requested without buffers
     assert emu.dpt_pyramid_sample(flat.data_ptr(), 80, 1, hs, ws, offs, 2, *derivs) != 0
+
+
+# ---------------------------------------------------------------------------
+# B4a, B4b, B4c, B5a, B5b
+# ---------------------------------------------------------------------------
+
+
+def _rows_inputs(C, M, seed):
+    """Precomputed rows with per-row cloud ids: ids that change from row to
+    row, some rows with equal ids, weights of 0, 1 and in between."""
+    rng = np.random.RandomState(seed)
+    j1, j2 = (torch.from_numpy(rng.randn(6, M).astype(np.float32)) for _ in range(2))
+    r1, r2 = (torch.from_numpy((0.1 * rng.randn(M)).astype(np.float32)) for _ in range(2))
+    sid = rng.randint(0, C, M).astype(np.int32)
+    tid = ((sid + rng.randint(0, C, M)) % C).astype(np.int32)  # equal to sid 1 time in C
+    w = np.where(rng.rand(M) < 0.5, (rng.rand(M) > 0.2).astype(np.float32),
+                 rng.rand(M).astype(np.float32)).astype(np.float32)
+    return j1, j2, r1, r2, torch.from_numpy(sid), torch.from_numpy(tid), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("C,M,cols_per_block,tile_cols", [(1, 333, 192, 64), (2, 1500, 512, 256),
+                                                          (3, 700, 256, 96)])
+def test_gn_rows_kernel_emulated(emu, C, M, cols_per_block, tile_cols):
+    args = _rows_inputs(C, M, seed=C)
+    S = 6 * C + 1
+    nt = (S + 3) // 4
+    nblocks = -(-M // cols_per_block)
+    partials = torch.zeros((nblocks, nt * (nt + 1) // 2 * 16))
+    G = torch.zeros((S, S), dtype=torch.float64)
+    assert emu.dpt_gn_rows(*[a.data_ptr() for a in args], M, C, cols_per_block, tile_cols,
+                           partials.data_ptr(), nblocks, G.data_ptr(), None) == 0
+    G = G.numpy()
+    np.testing.assert_array_equal(G, G.T)
+    H, b, c = (x.numpy() for x in gn.gn_rows_plain(*[a.double() if a.is_floating_point() else a
+                                                     for a in args], C))
+    n = 6 * C
+    np.testing.assert_allclose(G[:n, :n], H, rtol=0, atol=1e-6 * np.abs(H).max())
+    np.testing.assert_allclose(G[:n, n], b, rtol=0, atol=1e-6 * np.abs(b).max())
+    np.testing.assert_allclose(G[n, n], c, rtol=1e-6)
+
+
+@pytest.mark.parametrize("chunk", [512, 384])
+def test_moment_gram48_kernel_emulated(emu, chunk):
+    """One zero-padded (48,48) part per chunk; 384 is no multiple of the
+    256-row staging tile, so the last tile of a chunk is partly masked."""
+    data, *_ = _packed(2, [900, 500], chunk, seed=5)
+    n = data.shape[1] // chunk
+    parts = torch.full((n, 48, 48), float("nan"))
+    assert emu.dpt_moment_gram48(data.data_ptr(), 13, data.shape[1], chunk, parts.data_ptr(),
+                                 n, None) == 0
+    ref = gn.moment_gram48_plain(data.double(), chunk).numpy()
+    got = parts.numpy()
+    assert (got[:, 42:, :] == 0).all() and (got[:, :, 42:] == 0).all()
+    for k in range(n):
+        np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-6 * np.abs(ref[k]).max())
+
+
+@pytest.mark.parametrize("chunk", [768, 384])
+def test_moment_gram_thirds_kernel_emulated(emu, chunk):
+    data, *_ = _packed(2, [1000, 700], chunk, seed=6)
+    n = data.shape[1] // chunk
+    parts = torch.full((n, 3, 42, 42), float("nan"))
+    assert emu.dpt_moment_gram_thirds(data.data_ptr(), 13, data.shape[1], chunk,
+                                      parts.data_ptr(), n, None) == 0
+    ref = gn.moment_gram_thirds_plain(data.double(), chunk).numpy()
+    np.testing.assert_allclose(parts.numpy(), ref, rtol=0, atol=1e-6 * np.abs(ref).max())
+    whole = gn.moment_gram_plain(data.double(), chunk).numpy()
+    np.testing.assert_allclose(gn.moment_tri_extract(parts.double()).numpy(), whole, rtol=0,
+                               atol=1e-6 * np.abs(whole).max())
+
+
+@pytest.mark.parametrize("repeats", [1, 2, 5])
+def test_moment_gram_repeat_kernel_emulated(emu, repeats):
+    """Two DIFFERENT copies: repeat r adds the Gram of copy r % 2."""
+    chunk = 512
+    a, *_ = _packed(2, [600, 300], chunk, seed=7)
+    b, *_ = _packed(2, [600, 300], chunk, seed=8)
+    data2 = torch.stack([a, b]).contiguous()
+    Mp = a.shape[1]
+    parts = torch.full((Mp // 256, 42, 42), float("nan"))
+    assert emu.dpt_moment_gram_repeat(data2.data_ptr(), 13, Mp, 256, parts.data_ptr(), Mp // 256,
+                                      repeats, None) == 0
+    ref = gn.moment_gram_repeat_plain(data2.double(), 256, repeats).numpy()
+    np.testing.assert_allclose(parts.numpy(), ref, rtol=0, atol=2e-6 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("repeats", [1, 3])
+def test_hbm_read_sum_kernel_emulated(emu, repeats):
+    from dataset_pipeline_tpu_torch.ops import hbm
+
+    mp, cols_per_block = 5000, 1024  # the last block is partly filled
+    data2 = torch.from_numpy(np.random.RandomState(9).randn(2, 8, mp).astype(np.float32))
+    nblocks = -(-mp // cols_per_block)
+    partials = torch.full((nblocks, 8), float("nan"))
+    out = torch.full((8,), float("nan"))
+    assert emu.dpt_hbm_read_sum(data2.data_ptr(), mp, cols_per_block, repeats,
+                                partials.data_ptr(), nblocks, out.data_ptr(), None) == 0
+    ref = hbm.hbm_read_sum_plain(data2.double(), repeats).numpy()
+    np.testing.assert_allclose(out.numpy(), ref, rtol=0, atol=1e-5 * float(data2.abs().sum(2).max()))
+
+
+def test_new_entry_points_reject_bad_arguments(emu):
+    data = torch.zeros((2, 13, 768))
+    parts = torch.zeros((6, 48, 48))
+    p, d = parts.data_ptr(), data.data_ptr()
+    assert emu.dpt_moment_gram48(d, 13, 768, 500, p, 1, None) != 0  # chunks do not cover Mp
+    assert emu.dpt_moment_gram_thirds(d, 13, 768, 256, p, 3, None) != 0  # chunk % 3
+    assert emu.dpt_moment_gram_thirds(d, 12, 768, 384, p, 2, None) != 0  # too few rows
+    assert emu.dpt_moment_gram_repeat(d, 13, 768, 256, p, 3, 0, None) != 0  # no repeat
+    assert emu.dpt_moment_gram_repeat(d, 13, 768, 256, p, 2, 1, None) != 0  # blocks do not cover
+    assert emu.dpt_hbm_read_sum(d, 770, 256, 1, p, 4, p, None) != 0  # mp % 4
+    assert emu.dpt_hbm_read_sum(d, 768, 256, 1, p, 2, p, None) != 0  # blocks do not cover
+    z = [d] * 7
+    assert emu.dpt_gn_rows(*z, 100, 15, 256, 32, p, 1, p, None) != 0  # more tiles than threads
+    assert emu.dpt_gn_rows(*z, 100, 5, 256, 256, p, 1, p, None) != 0  # staging exceeds shared memory
+    assert emu.dpt_gn_rows(*z, 1000, 2, 256, 256, p, 1, p, None) != 0  # blocks do not cover M

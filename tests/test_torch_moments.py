@@ -112,7 +112,7 @@ def test_compute_group_moments_matches_jax(chunk):
     rng = np.random.RandomState(5)
     groups, _ = _random_groups(rng, 3, 700)
     ref = jm.compute_group_moments(groups, force_xla=True)
-    got = tm.compute_group_moments(groups, chunk=chunk)
+    got = tm.compute_group_moments(groups, chunk=chunk, device="cpu")
     for P, P_ref in zip(got, ref):
         np.testing.assert_allclose(P, P_ref, rtol=2e-5, atol=2e-5 * np.abs(P_ref).max())
 
@@ -124,7 +124,7 @@ def test_moments_match_direct_hb():
     C = 3
     groups, pairs = _random_groups(rng, C)
     q, t = _random_poses(rng, C)
-    H_m, b_m, cost_m = tm.hb_cost_from_moments(tm.compute_group_moments(groups, chunk=512),
+    H_m, b_m, cost_m = tm.hb_cost_from_moments(tm.compute_group_moments(groups, chunk=512, device="cpu"),
                                                pairs, q, t, C)
     flat = {k: np.concatenate([g[k] for g in groups]) for k in ("ps", "ns", "pt", "nt", "w")}
     sid = np.repeat(np.asarray([s for s, _ in pairs], np.int32), 257)
@@ -137,3 +137,57 @@ def test_moments_match_direct_hb():
     np.testing.assert_allclose(H_m, np.asarray(H_d), atol=2e-4 * scale)
     np.testing.assert_allclose(b_m, np.asarray(b_d), atol=2e-4 * np.abs(np.asarray(b_d)).max())
     np.testing.assert_allclose(cost_m, float(cost_d), rtol=2e-5)
+
+
+@pytest.mark.parametrize("C,per_group,seed", [(2, 123, 17), (6, 57, 23)])
+def test_hb_cost_from_moments_torch_matches_jax_and_float64(C, per_group, seed):
+    """The on-device form, batched over the groups (C = 6 gives 30), against
+    the JAX function (1e-5 of scale) and the float64 host form (2e-4)."""
+    rng = np.random.RandomState(seed)
+    groups, pairs = _random_groups(rng, C, per_group=per_group)
+    assert len(pairs) == C * (C - 1)
+    q, t = _random_poses(rng, C)
+    P = jm.compute_group_moments(groups, force_xla=True)
+    H_np, b_np, c_np = jm.hb_cost_from_moments(P, pairs, q, t, C)
+    P48 = np.stack([np.pad(p, ((0, 6), (0, 6))) for p in P]).astype(np.float32)
+    H_j, b_j, c_j = (np.asarray(x) for x in jm.hb_cost_from_moments_jax(
+        jnp.asarray(P48), pairs, jnp.asarray(q, jnp.float32), jnp.asarray(t, jnp.float32), C))
+    H, b, c = (x.numpy() for x in tm.hb_cost_from_moments_torch(
+        torch.from_numpy(P48), pairs, torch.from_numpy(q.astype(np.float32)),
+        torch.from_numpy(t.astype(np.float32)), C))
+    assert H.dtype == np.float32 and H.shape == (6 * C, 6 * C) and b.shape == (6 * C,)
+    scale, bscale = np.abs(H_np).max(), max(np.abs(b_np).max(), 1e-9)
+    np.testing.assert_allclose(H, H_np, rtol=0, atol=2e-4 * scale)
+    np.testing.assert_allclose(b, b_np, rtol=0, atol=2e-4 * bscale)
+    np.testing.assert_allclose(float(c), c_np, rtol=2e-4)
+    np.testing.assert_allclose(H, H_j, rtol=0, atol=1e-5 * scale)
+    np.testing.assert_allclose(b, b_j, rtol=0, atol=1e-5 * bscale)
+    np.testing.assert_allclose(float(c), float(c_j), rtol=1e-5)
+    # in float64 it is the host form, with (G, 42, 42) moments and a pair tensor
+    H64, b64, c64 = tm.hb_cost_from_moments_torch(
+        torch.from_numpy(np.stack(P)), torch.tensor(pairs), torch.from_numpy(q),
+        torch.from_numpy(t), C)
+    np.testing.assert_allclose(H64.numpy(), H_np, rtol=0, atol=1e-12 * scale)
+    np.testing.assert_allclose(b64.numpy(), b_np, rtol=0, atol=1e-12 * bscale)
+    np.testing.assert_allclose(float(c64), c_np, rtol=1e-12)
+
+
+def test_group_moments_on_device_matches_host_sums():
+    from dataset_pipeline_tpu_torch.ops import gn
+
+    rng = np.random.RandomState(9)
+    groups, _ = _random_groups(rng, 3, 700)
+    data, gid = tm.pack_group_data(groups, 256, rows=13, device="cpu")
+    host = tm.compute_group_moments_from_packed(data, gid, len(groups), 256)
+    parts, per_chunk = gn.moment_gram_partials(data, 256)
+    dev = tm.group_moments_on_device(parts, per_chunk, gid, len(groups))
+    assert dev.shape == (len(groups), 42, 42) and dev.dtype == torch.float32
+    for P, P_ref in zip(dev.double().numpy(), host):
+        np.testing.assert_allclose(P, P_ref, rtol=0, atol=1e-6 * np.abs(P_ref).max())
+
+
+def test_tf32_stays_off():
+    """The moment products need strict fp32; the package's import sets it."""
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.get_float32_matmul_precision() == "highest"
