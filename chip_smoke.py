@@ -15,13 +15,18 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   passes; a small scene CUDA vs CPU; then
   ``tools.icp_scan_aligner.main(..., "--device", "cuda")`` on two synthetic
   height-field scans of ~4M points each.
-- Photometric image registration: B3 (``pyramid_sample``) against its plain
-  version at the registrator's shapes (8 images x 3072x2048 x 5 scales,
-  1.6M observations per image, both modes); a 640x480 scene through
+- Photometric image registration: B3 (``pyramid_sample``) and the
+  row-paired copy of the pyramid it reads against their plain versions at
+  the registrator's shapes (8 images x 3072x2048 x 5 scales, 1.6M
+  observations per image, both modes); a 640x480 scene through
   ``tools.image_registrator.main(..., "--device", dev)`` on CUDA and on the
   CPU; then the DSLR configuration (16 images of 3072x2048, a coloured scan
   of ~5.6M points, ~2.2M multi-resolution points) through the CLI at full
-  resolution for 3 iterations.
+  resolution for 3 iterations, keeping the inputs of its first
+  derivatives-mode B3 launch, at which B3 is timed again afterwards. With
+  ``--compare_b3_source FILE`` (a one-off) an earlier B3 that reads the
+  flat pyramid is built from FILE and held bit for bit against this one at
+  both input sets, the two timed in turns.
 
 - The ICP measurement path: B4a (``gn_rows``, C = 2 and C = 5, per-row
   cloud ids), B4b (``moment_gram48``), B4c (``moment_gram_thirds``), B5a
@@ -64,7 +69,7 @@ import time
 import numpy as np
 
 ICP_KERNELS = ("gn_fused", "gn_fused_cost_batch", "moment_gram")
-REG_KERNELS = ("pyramid_sample_derivs", "pyramid_sample_value")
+REG_KERNELS = ("pyramid_sample_derivs", "pyramid_sample_value", "pyramid_pairs")
 BENCH_KERNELS = ("gn_fused", "gn_fused_cost_batch", "moment_gram", "gn_rows", "moment_gram48", "moment_gram_thirds",
                  "moment_gram_repeat", "hbm_read_sum")
 PROBE_KERNELS = ("take_along_lanes", "take_along_sublanes", "take_rows", "advanced_2d",
@@ -91,7 +96,12 @@ B1_FLOPS = 240  # per correspondence: posing 66, residuals 14, crosses 18, the 2
 B1_COST_FLOPS = 85  # per correspondence and candidate: posing 66, residuals 14, the cost 5
 B1_CANDIDATES = 10  # the LM ladder's tries
 # kernels already redesigned for this card: the order below does not take them again
-REDESIGNED = ("hbm_read_sum", "gn_fused")
+REDESIGNED = ("hbm_read_sum", "gn_fused", "pyramid_sample", "moment_gram", "moment_gram48",
+              "moment_gram_thirds", "moment_gram_repeat")
+# the operation count of a moment Gram row over the 42x42 upper triangle: 903
+# FMAs and 43 for the monomials (gn.MOMENT_FLOPS_PER_ROW, the least work, is
+# the Kronecker-factored count); printed beside it so earlier shares compare
+B2_FLOPS_TRIANGLE = 2 * 903 + 43
 B4A_FLOPS = 364  # per correspondence: 2 products x 91 FMAs (13 non-zeros per column)
 B4B_CHUNK = 16384
 HBM_MP = 8_388_608
@@ -308,16 +318,20 @@ def check_b2(torch, gn, pack_group_data, compute_group_moments_from_packed, seed
     def plain():
         return gn.moment_gram_plain(data, ENGINE_CHUNK)
 
+    parts = kernel()[0]
+    if not torch.equal(parts, parts.transpose(1, 2)):
+        fail("B2: a part is not exactly symmetric")
+    if worst_fro >= 1e-7:
+        fail(f"B2: max err {worst_fro:.3e} of ||P||_F is not under the engine's 1e-7")
     times = kernel_ms(kernel, torch)
     plain_ms = cuda_ms(plain, torch, warmup=1, reps=5)
+    b = gram_bound(gn, data.numel() * 4 + parts.numel() * 4, data.shape[1])
     print(f"B2 moment_gram M={data.shape[1]} (chunk {ENGINE_CHUNK}): kernel vs f64 plain max err "
           f"{worst_max:.3e} of max|P|, {worst_fro:.3e} of ||P||_F (engine assumes noise "
-          f"1e-7 ||P||_F); f32 plain vs f64 {worst32:.3e} of ||P||_F; max|kernel - f32 plain| "
-          f"{max_abs:.3e}; kernel {times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for one "
-          f"launch between its events), f32 plain {plain_ms:.4f} ms")
-    return {"max_abs_err": max_abs, **times, "plain_ms": plain_ms,
-            **bound(data.numel() * 4 + kernel()[0].numel() * 4, gn.MOMENT_FLOPS_PER_ROW * data.shape[1]),
-            "library_ms": None}
+          f"1e-7 ||P||_F); parts symmetric; f32 plain vs f64 {worst32:.3e} of ||P||_F; max|kernel - "
+          f"f32 plain| {max_abs:.3e}; kernel {times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for "
+          f"one launch between its events), f32 plain {plain_ms:.4f} ms; {gram_shares(gn, b, times['ms'])}")
+    return {"max_abs_err": max_abs, **times, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +378,19 @@ def check_b4a(torch, gn, C: int, seed: int):
     return {"max_abs_err": max_abs, **times, "plain_ms": plain_ms, **b, "library_ms": None}
 
 
+def gram_bound(gn, nbytes: float, rows: int) -> dict:
+    """A moment Gram kernel's bound on the least work (gn.MOMENT_FLOPS_PER_ROW,
+    the Kronecker-factored count), beside the bound on the triangle's count."""
+    return {**bound(nbytes, gn.MOMENT_FLOPS_PER_ROW * rows),
+            "bound_ms_triangle_count": bound(nbytes, B2_FLOPS_TRIANGLE * rows)["bound_ms"]}
+
+
+def gram_shares(gn, b: dict, ms: float) -> str:
+    return (f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {gn.MOMENT_FLOPS_PER_ROW} flop/row): "
+            f"{b['bound_ms'] / ms:.1%}; on the 42x42 triangle's {B2_FLOPS_TRIANGLE} flop/row "
+            f"{b['bound_ms_triangle_count']:.4f} ms: {b['bound_ms_triangle_count'] / ms:.1%}")
+
+
 def gram_check(name, got, ref64, ref32):
     """Max error of a stack of Grams against the float64 plain version, as
     a share of max|P| (must stay under B2_TOL), and against the float32 one."""
@@ -390,17 +417,20 @@ def check_moment_variants(torch, gn, pack_group_data, seed: int):
         fail("B4b: two identical launches disagree (not deterministic)")
     if bool(k[:, 42:, :].any()) or bool(k[:, :, 42:].any()):
         fail("B4b: rows or columns 42..47 are not exactly zero")
+    if not torch.equal(k, k.transpose(1, 2)):
+        fail("B4b: a part is not exactly symmetric")
     p32 = gn.moment_gram48_plain(data16, B4B_CHUNK)
     rel, max_abs = gram_check("B4b", k, gn.moment_gram48_plain(data16.double(), B4B_CHUNK), p32)
     times = kernel_ms(lambda: gn.moment_gram48(data16, B4B_CHUNK), torch)
     plain_ms = cuda_ms(lambda: gn.moment_gram48_plain(data16, B4B_CHUNK), torch, warmup=1, reps=5)
     Mp = data16.shape[1]
-    out["moment_gram48"] = {"max_abs_err": max_abs, **times, "plain_ms": plain_ms,
-                            **bound(52 * Mp + k.numel() * 4, gn.MOMENT_FLOPS_PER_ROW * Mp), "library_ms": None}
+    b = gram_bound(gn, 52 * Mp + k.numel() * 4, Mp)
+    out["moment_gram48"] = {"max_abs_err": max_abs, **times, "plain_ms": plain_ms, **b,
+                            "library_ms": None}
     print(f"B4b moment_gram48 M={Mp} (chunk {B4B_CHUNK}, 16 rows): kernel vs f64 plain max err "
           f"{rel:.3e} of max|P|; pad rows zero; max|kernel - f32 plain| {max_abs:.3e}; kernel "
           f"{times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for one launch between its "
-          f"events), f32 plain {plain_ms:.4f} ms")
+          f"events), f32 plain {plain_ms:.4f} ms; {gram_shares(gn, b, times['ms'])}")
     del data16, k, p32
 
     # B4c
@@ -408,19 +438,21 @@ def check_moment_variants(torch, gn, pack_group_data, seed: int):
     k = gn.moment_gram_thirds(data, ENGINE_CHUNK)
     if not torch.equal(k, gn.moment_gram_thirds(data, ENGINE_CHUNK)):
         fail("B4c: two identical launches disagree (not deterministic)")
+    if not torch.equal(k, k.transpose(2, 3)):
+        fail("B4c: a part is not exactly symmetric")
     p32 = gn.moment_gram_thirds_plain(data, ENGINE_CHUNK)
     rel, max_abs = gram_check("B4c", k, gn.moment_gram_thirds_plain(data.double(), ENGINE_CHUNK), p32)
     times = kernel_ms(lambda: gn.moment_gram_thirds(data, ENGINE_CHUNK), torch)
     plain_ms = cuda_ms(lambda: gn.moment_gram_thirds_plain(data, ENGINE_CHUNK), torch,
                        warmup=1, reps=5)
     Mp = data.shape[1]
-    out["moment_gram_thirds"] = {"max_abs_err": max_abs, **times, "plain_ms": plain_ms,
-                                 **bound(52 * Mp + k.numel() * 4, gn.MOMENT_FLOPS_PER_ROW * Mp),
+    b = gram_bound(gn, 52 * Mp + k.numel() * 4, Mp)
+    out["moment_gram_thirds"] = {"max_abs_err": max_abs, **times, "plain_ms": plain_ms, **b,
                                  "library_ms": None}
     print(f"B4c moment_gram_thirds M={Mp} (chunk {ENGINE_CHUNK}, per third): kernel vs f64 plain "
           f"max err {rel:.3e} of max|P|; max|kernel - f32 plain| {max_abs:.3e}; kernel "
           f"{times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for one launch between its "
-          f"events), f32 plain {plain_ms:.4f} ms")
+          f"events), f32 plain {plain_ms:.4f} ms; {gram_shares(gn, b, times['ms'])}")
     del k, p32
 
     # B5a: a second, different copy
@@ -431,6 +463,8 @@ def check_moment_variants(torch, gn, pack_group_data, seed: int):
     k, per_chunk = gn.moment_gram_repeat(data2, ENGINE_CHUNK, 5)
     if not torch.equal(k, gn.moment_gram_repeat(data2, ENGINE_CHUNK, 5)[0]):
         fail("B5a: two identical launches disagree (not deterministic)")
+    if not torch.equal(k, k.transpose(1, 2)):
+        fail("B5a: a part is not exactly symmetric")
     k = k.reshape(-1, per_chunk, 42, 42)
     ref64 = (3 * gn.moment_gram_plain(data2[0].double(), ENGINE_CHUNK)
              + 2 * gn.moment_gram_plain(data2[1].double(), ENGINE_CHUNK))
@@ -445,14 +479,15 @@ def check_moment_variants(torch, gn, pack_group_data, seed: int):
     plain_ms = cuda_ms(lambda: gn.moment_gram_repeat_plain(data2, ENGINE_CHUNK, 1), torch,
                        warmup=1, reps=5)
     Mp = data2.shape[2]
-    out["moment_gram_repeat"] = {"max_abs_err": max_abs, **times, "plain_ms": plain_ms,
-                                 **bound(52 * Mp + one.numel() * 4, gn.MOMENT_FLOPS_PER_ROW * Mp),
+    b = gram_bound(gn, 52 * Mp + one.numel() * 4, Mp)
+    out["moment_gram_repeat"] = {"max_abs_err": max_abs, **times, "plain_ms": plain_ms, **b,
                                  "library_ms": None}
     print(f"B5a moment_gram_repeat M={Mp} (two different copies): R=5 vs 3 Gram(copy0) + "
           f"2 Gram(copy1) in f64 max err {rel:.3e} of max; max|kernel - f32 plain| {max_abs:.3e}; "
           f"R=1 bitwise the B2 kernel; R=1 {ms:.4f} ms ({times['ms_one_launch']:.4f} ms for one "
           f"launch between its events), R=5 {ms5:.4f} ms "
-          f"({(ms5 - ms) / 4:.4f} ms per further repeat), f32 plain (R=1) {plain_ms:.4f} ms")
+          f"({(ms5 - ms) / 4:.4f} ms per further repeat), f32 plain (R=1) {plain_ms:.4f} ms; "
+          f"{gram_shares(gn, b, ms)}")
     return out
 
 
@@ -815,17 +850,39 @@ def b3_inputs(torch, tps, seed: int):
     return pyr, flat, layout, pix, scale
 
 
-def check_b3(torch, tps, seed: int):
+def check_pair_build(torch, tps, flat, layout):
+    """B3's second launch mode: the row-paired copy of a chunk's pyramids,
+    built once per image chunk, bit for bit its plain version."""
+    pairs = tps.pair_rows(flat, layout)
+    if not torch.equal(pairs, tps.pair_rows_plain(flat, layout)):
+        fail("B3 row-paired copy: the kernel differs from its plain version")
+    if not torch.equal(pairs, tps.pair_rows(flat, layout)):
+        fail("B3 row-paired copy: two identical launches disagree")
+    times = kernel_ms(lambda: tps.pair_rows(flat, layout), torch)
+    plain_ms = cuda_ms(lambda: tps.pair_rows_plain(flat, layout), torch, warmup=1, reps=5)
+    b = bound(flat.numel() * 4 + pairs.numel() * 4, 0)
+    print(f"B3 row-paired copy: {flat.numel() * 4 / 1e6:.0f} MB of pyramids -> "
+          f"{pairs.numel() * 4 / 1e6:.0f} MB, bit-equal to its plain version; kernel {times['ms']:.4f} ms "
+          f"({times['ms_one_launch']:.4f} ms for one launch between its events), plain "
+          f"{plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    return pairs, {"max_abs_err": 0.0, **times, "plain_ms": plain_ms, **b, "library_ms": None}
+
+
+def check_b3(torch, tps, seed: int, flat_sampler=None):
     """B3 against its plain version (float32 and float64) at the
-    registrator's shapes, both modes; CUDA-event times of kernel and plain."""
+    registrator's shapes, both modes; CUDA-event times of kernel and plain;
+    the row-paired copy it reads; with ``flat_sampler`` (a one-off build of
+    an earlier B3 that reads the flat pyramid), that kernel against this one."""
     nb, H, W, n = B3_IMAGES, B3_H, B3_W, B3_OBS
     _, flat, layout, pix, scale = b3_inputs(torch, tps, seed)
+    pairs, pair_build = check_pair_build(torch, tps, flat, layout)
     sectors = tap_sectors(torch, layout, pix, scale)
-    out = {}
+    paired = tap_sectors(torch, layout, pix, scale, paired=True)
+    out = {"pair_build": pair_build}
     for derivs in (True, False):
         mode = "derivs" if derivs else "value"
-        k = tps.pyramid_sample(flat, layout, pix, scale, derivs)
-        k2 = tps.pyramid_sample(flat, layout, pix, scale, derivs)
+        k = tps.pyramid_sample(flat, layout, pix, scale, derivs, pairs)
+        k2 = tps.pyramid_sample(flat, layout, pix, scale, derivs, pairs)
         if any(not torch.equal(a, b) for a, b in zip(k, k2)):
             fail(f"B3 {mode}: two identical launches disagree (not deterministic)")
         p32 = tps.sample_plain(flat, layout, pix, scale, derivs)
@@ -843,51 +900,127 @@ def check_b3(torch, tps, seed: int):
             errs[name] = (e32, e64)
             if not (e32 <= tol and e64 <= tol):
                 fail(f"B3 {mode} {name}: |kernel - plain| f32 {e32:.3e} f64 {e64:.3e} > {tol}")
-        times = kernel_ms(lambda: tps.pyramid_sample(flat, layout, pix, scale, derivs), torch)
+        del p32, p64
+        times = kernel_ms(lambda: tps.pyramid_sample(flat, layout, pix, scale, derivs, pairs), torch)
         ms = times["ms"]
         plain_ms = cuda_ms(lambda: tps.sample_plain(flat, layout, pix, scale, derivs), torch,
                            warmup=1, reps=5)
         obs = nb * n
         streamed = obs * (8 + 4 + (16 if derivs else 4) + 1)  # pix, scale, outputs, ok
         lo = max(sectors["distinct"] * 32 - L2_BYTES, 0) + streamed
-        hi = sectors["requests"] * 32 + streamed
+        hi = paired["requests"] * 32 + streamed
         print(f"B3 pyramid_sample {mode}: {nb} images x {W}x{H} x {B3_SCALES} scales "
               f"({flat.numel() * 4 / 1e6:.0f} MB), {obs} observations, ok {float(ok.float().mean()):.3f}; "
               + ", ".join(f"{k_} |k-f32| {a:.3e} |k-f64| {b:.3e}" for k_, (a, b) in errs.items())
               + f"; kernel {ms:.4f} ms ({times['ms_one_launch']:.4f} ms for one launch between its "
-              f"events), f32 plain {plain_ms:.4f} ms; taps touch "
-              f"{sectors['requests'] / obs:.3f} sectors/obs, {sectors['distinct']} distinct "
-              f"sectors; bytes from the inputs: >= {lo / 1e9:.3f} GB from DRAM (distinct "
-              f"sectors - L2 + streamed) -> >= {lo / ms / 1e6:.1f} GB/s; <= {hi / 1e9:.3f} GB "
-              f"if every sector request missed L2 -> {hi / ms / 1e6:.1f} GB/s")
-        # the bound counts what these inputs need: every distinct sector once
+              f"events), f32 plain {plain_ms:.4f} ms; taps in the flat pyramid touch "
+              f"{sectors['requests'] / obs:.3f} sectors/obs, {sectors['distinct']} distinct; in the "
+              f"row-paired copy {paired['requests'] / obs:.3f} sectors/obs, {paired['distinct']} "
+              f"distinct; bytes from the inputs: >= {lo / 1e9:.3f} GB from DRAM (distinct flat "
+              f"sectors - L2 + streamed) -> >= {lo / ms / 1e6:.1f} GB/s; <= {hi / 1e9:.3f} GB if "
+              f"every paired sector request missed L2 -> {hi / ms / 1e6:.1f} GB/s")
+        # the bound counts what these inputs need: every distinct sector of the
+        # flat pyramid once, whatever layout the kernel reads
         out[mode] = {"max_abs_err": max(a for a, _ in errs.values()), **times,
-                     "plain_ms": plain_ms,
+                     "plain_ms": plain_ms, "sectors_per_obs": paired["requests"] / obs,
+                     "flat_sectors_per_obs": sectors["requests"] / obs,
                      **bound(sectors["distinct"] * 32 + streamed, 100 * obs), "library_ms": None}
+    if flat_sampler is not None:
+        out["flat_sampler"] = compare_b3_with_flat_sampler(torch, tps, flat_sampler, flat, layout, pix,
+                                                           scale, pairs, "the smoke")
     return out
 
 
-def tap_sectors(torch, layout, pix, scale):
-    """The 32-byte sectors the kernel's taps read (its addressing: 2 rows x
-    2 columns in each of the 2 bracketing levels): the sum over
-    observations of each one's distinct sectors (``requests``), and the
-    distinct sectors over the launch (``distinct``), each of which DRAM
-    must deliver at least once, less what L2 holds from before."""
+def load_flat_sampler(kernels, source: str):
+    """An earlier B3 that reads the flat pyramid (its entry point takes the
+    flat pyramid and its level offsets where this one takes the row-paired
+    copy), built from ``source`` into a library of its own beside the
+    kernels' build: its entry point, typed as the package's."""
+    import ctypes
+
+    out_dir = os.path.join(os.path.dirname(kernels.BUILD_ROOT), "oneoff")
+    os.makedirs(out_dir, exist_ok=True)
+    lib = os.path.join(out_dir, "libflat_pyramid_sample.so")
+    r = subprocess.run([kernels.find_nvcc(), *kernels.COMPILE_FLAGS, "-shared", "-o", lib,
+                        os.path.abspath(source)], capture_output=True, text=True)
+    if r.returncode != 0:
+        fail(f"the one-off build of {source} failed:\n{r.stdout}{r.stderr}")
+    fn = ctypes.CDLL(lib).dpt_pyramid_sample
+    fn.argtypes = kernels.KERNELS["pyramid_sample"].argtypes
+    fn.restype = ctypes.c_int
+    print(f"one-off build of {source}: {lib}")
+    return fn
+
+
+def flat_b3(torch, fn, flat, layout, pix, scale, derivs: bool):
+    """The earlier B3 on the flat pyramid, called as its wrapper called it."""
+    import ctypes
+
+    nb, n = scale.shape
+    L = layout.levels
+    value = torch.empty((nb, n), dtype=torch.float32, device=flat.device)
+    ok = torch.empty((nb, n), dtype=torch.bool, device=flat.device)
+    d = [torch.empty_like(value) for _ in range(3)] if derivs else []
+    err = fn(flat.data_ptr(), layout.total, nb, (ctypes.c_int * L)(*layout.hs),
+             (ctypes.c_int * L)(*layout.ws), (ctypes.c_longlong * L)(*layout.offs), L,
+             pix.data_ptr(), scale.data_ptr(), n, int(derivs), value.data_ptr(),
+             *([x.data_ptr() for x in d] or [None] * 3), ok.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"the flat-pyramid B3: launch error {err}")
+    return (value, *d, ok)
+
+
+def compare_b3_with_flat_sampler(torch, tps, fn, flat, layout, pix, scale, pairs, label: str):
+    """The flat-pyramid B3 and this one on the same inputs: every output
+    bit-equal in both modes; derivs-mode times in turns (flat, this, this,
+    flat)."""
+    for derivs in (True, False):
+        old = flat_b3(torch, fn, flat, layout, pix, scale, derivs)
+        new = tps.pyramid_sample(flat, layout, pix, scale, derivs, pairs)
+        if any(not torch.equal(a, b) for a, b in zip(old, new)):
+            fail(f"B3 at {label}'s inputs ({'derivs' if derivs else 'value'}): the outputs differ "
+                 "from the flat-pyramid kernel's")
+    (o1, o2), (n1, n2) = in_turns(lambda: flat_b3(torch, fn, flat, layout, pix, scale, True),
+                                  lambda: tps.pyramid_sample(flat, layout, pix, scale, True, pairs),
+                                  torch, {"inner": 10}, {"inner": 10})
+    print(f"B3 against the flat-pyramid kernel at {label}'s inputs: every output bit-equal in both "
+          f"modes; derivs mode in turns, ten launches per event pair: flat {o1:.4f} / {o2:.4f} ms, "
+          f"row-paired {n1:.4f} / "
+          f"{n2:.4f} ms ({(o1 + o2) / (n1 + n2):.3f}x)")
+    return {"flat_ms": [o1, o2], "ms": [n1, n2]}
+
+
+def tap_sectors(torch, layout, pix, scale, paired: bool = False):
+    """The 32-byte sectors the taps read (2 rows x 2 columns in each of the 2
+    bracketing levels) in the flat pyramid, or with ``paired`` in the
+    row-paired copy the kernel reads (16 contiguous bytes a level): the sum
+    over observations of each one's distinct sectors (``requests``), and the
+    distinct sectors over the launch (``distinct``), each of which DRAM must
+    deliver at least once, less what L2 holds from before."""
     nb, n = scale.shape
     dev = pix.device
     L = layout.levels
-    si = torch.clamp(torch.floor(scale) + 1, 1, L - 1).long()
-    hs, ws, offs = (torch.tensor(v, device=dev) for v in (layout.hs, layout.ws, layout.offs))
-    img = torch.arange(nb, device=dev)[:, None] * layout.total
+    # as the kernel: a non-finite scale takes levels (0, 1), a NaN coordinate clips to 0
+    si = torch.where(torch.isfinite(scale), torch.clamp(torch.floor(torch.nan_to_num(scale)) + 1, 1, L - 1),
+                     torch.ones_like(scale)).long()
+    hs, ws = torch.tensor(layout.hs, device=dev), torch.tensor(layout.ws, device=dev)
+    offs = torch.tensor(layout.pair_offs if paired else layout.offs, device=dev)
+    img = torch.arange(nb, device=dev)[:, None] * (layout.pair_total if paired else layout.total)
     ids = []
     for lvl in (si, si - 1):
         f = torch.pow(2.0, -lvl.float())
         W, H = ws[lvl], hs[lvl]
-        ix = torch.minimum(torch.clamp(torch.floor(f * (pix[..., 0] + 0.5) - 0.5), min=0), W - 2)
-        iy = torch.minimum(torch.clamp(torch.floor(f * (pix[..., 1] + 0.5) - 0.5), min=0), H - 2)
+        x, y = (torch.nan_to_num(torch.floor(f * (pix[..., i] + 0.5) - 0.5), nan=0.0) for i in (0, 1))
+        ix = torch.minimum(torch.clamp(x, min=0), W - 2)
+        iy = torch.minimum(torch.clamp(y, min=0), H - 2)
+        if paired:
+            base = img + offs[lvl] + iy.long() * ((2 * W + 3) // 4 * 4) + 2 * ix.long()
+            ids += [base // 8, (base + 3) // 8]  # 8 floats per sector
+            continue
         base = img + offs[lvl] + iy.long() * W + ix.long()
         for row in (base, base + W):
-            ids += [row // 8, (row + 1) // 8]  # 8 floats per sector
+            ids += [row // 8, (row + 1) // 8]
     S = torch.stack(ids, -1).sort(-1).values
     requests = int(S.shape[-1] * S[..., 0].numel() - (S[..., 1:] == S[..., :-1]).sum())
     distinct = int(torch.unique(S).numel())
@@ -958,9 +1091,59 @@ def check_registrator_small(torch, image_registrator, write_scene, cio, root: st
         fail("small registrator scene: a scale run left a pose (nearly) unchanged")
 
 
-def run_registrator_dslr(torch, kernels, image_registrator, synthetic, cio, quat_to_matrix_np,
-                         root: str):
-    """The DSLR configuration through the CLI at full resolution."""
+def b3_input_stats(torch, layout, pix, scale) -> str:
+    """Where a launch's observations fall: the share inside the image, and
+    the share per bracketing level pair (si - 1, si)."""
+    L = layout.levels
+    inside = ((pix[..., 0] >= 0) & (pix[..., 0] <= layout.ws[0] - 1)
+              & (pix[..., 1] >= 0) & (pix[..., 1] <= layout.hs[0] - 1))
+    si = torch.clamp(torch.floor(torch.nan_to_num(scale, nan=0.0)) + 1, 1, max(L - 1, 1)).long()
+    share = torch.bincount(si.reshape(-1), minlength=L).double() / si.numel()
+    return (f"{float(inside.double().mean()):.3f} inside the image; levels (si-1, si) share "
+            + ", ".join(f"({s - 1},{s}) {float(share[s]):.3f}" for s in range(1, L)))
+
+
+def check_b3_at_captured(torch, tps, cap: dict, label: str, flat_sampler=None):
+    """B3's time and tap sectors at a launch's own inputs (derivs mode), and
+    with ``flat_sampler`` the flat-pyramid kernel against it there."""
+    flat, layout = cap["flat"].cuda(), cap["layout"]
+    pix, scale = cap["pix"].cuda(), cap["scale"].cuda()
+    nb, n = scale.shape
+    pairs = tps.pair_rows(flat, layout)
+    sectors = tap_sectors(torch, layout, pix, scale)
+    paired = tap_sectors(torch, layout, pix, scale, paired=True)
+    k = tps.pyramid_sample(flat, layout, pix, scale, True, pairs)
+    ok = k[-1]
+    p32 = tps.sample_plain(flat, layout, pix, scale, True)
+    if not torch.equal(ok, p32[-1]):
+        fail(f"B3 at {label}'s inputs: ok differs from the f32 plain version")
+    err = max(float((a - b)[ok].abs().max()) if bool(ok.any()) else 0.0
+              for a, b in zip(k[:-1], p32[:-1]))
+    times = kernel_ms(lambda: tps.pyramid_sample(flat, layout, pix, scale, True, pairs), torch)
+    obs = nb * n
+    streamed = obs * (8 + 4 + 16 + 1)
+    b = bound(sectors["distinct"] * 32 + streamed, 100 * obs)
+    print(f"B3 pyramid_sample derivs at {label}'s inputs: {nb} images, levels "
+          f"{list(zip(layout.ws, layout.hs))}, {obs} observations ({b3_input_stats(torch, layout, pix, scale)}), "
+          f"ok {float(ok.float().mean()):.3f}; max|k - f32 plain| where ok {err:.3e}; kernel "
+          f"{times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for one launch between its events); "
+          f"taps in the flat pyramid touch {sectors['requests'] / obs:.3f} sectors/obs, "
+          f"{sectors['distinct']} distinct ({sectors['distinct'] / obs:.3f}/obs); in the row-paired "
+          f"copy {paired['requests'] / obs:.3f} sectors/obs, {paired['distinct']} distinct; bound "
+          f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+    res = {"obs": obs, **times, **b, "sectors_per_obs": paired["requests"] / obs,
+           "flat_sectors_per_obs": sectors["requests"] / obs, "distinct_sectors": sectors["distinct"]}
+    if flat_sampler is not None:
+        res["flat_sampler"] = compare_b3_with_flat_sampler(torch, tps, flat_sampler, flat, layout, pix,
+                                                           scale, pairs, label)
+    return res
+
+
+def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic, cio,
+                         quat_to_matrix_np, root: str):
+    """The DSLR configuration through the CLI at full resolution. The inputs
+    of the run's first derivs-mode B3 launch are kept (on the host, so that
+    the peak device memory is the run's own) and returned."""
     t0 = time.perf_counter()
     c = synthetic.DSLR
     n_scan, tq, tt = synthetic.write_scene_at_density(
@@ -971,14 +1154,26 @@ def run_registrator_dslr(torch, kernels, image_registrator, synthetic, cio, quat
     before = pose_errors(os.path.join(root, "state"), tq, tt, cio, quat_to_matrix_np)
     out = os.path.join(root, "out")
     timings, stats = {}, {}
+    captured = {}
+    sample = optimizer.pyramid_sample
+
+    def keep_first(flat, layout, pix, scale, with_derivs=True, **kw):
+        if with_derivs and not captured:
+            captured.update(flat=flat.cpu(), layout=layout, pix=pix.cpu(), scale=scale.cpu())
+        return sample(flat, layout, pix, scale, with_derivs, **kw)
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    optimizer.pyramid_sample = keep_first  # for this run only
     t0 = time.perf_counter()
-    rc = image_registrator.main(registrator_args(
-        root, out, "cuda", ["--initial_scaling_factor", "1", "--target_scaling_factor", "1",
-                            "--merge_distance_factor", str(c["merge_distance_factor"])]),
-        timings=timings, stats=stats)
-    torch.cuda.synchronize()
+    try:
+        rc = image_registrator.main(registrator_args(
+            root, out, "cuda", ["--initial_scaling_factor", "1", "--target_scaling_factor", "1",
+                                "--merge_distance_factor", str(c["merge_distance_factor"])]),
+            timings=timings, stats=stats)
+        torch.cuda.synchronize()
+    finally:
+        optimizer.pyramid_sample = sample
     wall = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] for k in REG_KERNELS}
     if rc != 0:
@@ -1008,10 +1203,21 @@ def run_registrator_dslr(torch, kernels, image_registrator, synthetic, cio, quat
     for k, v in launches.items():
         if v <= 0:
             fail(f"the registrator's main path never launched kernel {k}")
-    return launches
+    if not captured:
+        fail("DSLR: no derivs-mode B3 launch to keep the inputs of")
+    return launches, captured
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch + CUDA port.")
+    ap.add_argument("--compare_b3_source", default=None,
+                    help="a one-off comparison: the source of an earlier B3 that reads the flat "
+                         "pyramid (its dpt_pyramid_sample takes the flat pyramid's offsets), built "
+                         "into a library of its own and held against this B3, bit for bit and in "
+                         "turns, at the smoke's and the DSLR run's inputs")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -1035,6 +1241,7 @@ def main() -> int:
         from dataset_pipeline_tpu_torch.io.ply import PointCloud, write_ply
         from dataset_pipeline_tpu_torch.ops import gather, gn, hbm
         from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
+        from dataset_pipeline_tpu_torch.photometric import optimizer
         from dataset_pipeline_tpu_torch.tools import icp_bench, icp_scan_aligner, image_registrator
         from dataset_pipeline_tpu_torch.utils import synthetic
     except ImportError as e:
@@ -1116,7 +1323,8 @@ def main() -> int:
 
     # photometric registration
     t0 = time.perf_counter()
-    b3 = check_b3(torch, tps, seed=4)
+    flat_sampler = load_flat_sampler(kernels, args.compare_b3_source) if args.compare_b3_source else None
+    b3 = check_b3(torch, tps, seed=4, flat_sampler=flat_sampler)
     torch.cuda.empty_cache()
     print(f"B3 checks: {time.perf_counter() - t0:.1f} s")
     with tempfile.TemporaryDirectory() as root:
@@ -1124,8 +1332,12 @@ def main() -> int:
         check_registrator_small(torch, image_registrator, synthetic.write_scene, cio,
                                 os.path.join(root, "small"))
         print(f"small registrator scene: {time.perf_counter() - t0:.1f} s")
-        reg = run_registrator_dslr(torch, kernels, image_registrator, synthetic, cio,
-                                   quat_to_matrix_np, os.path.join(root, "dslr"))
+        reg, dslr_b3 = run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic,
+                                            cio, quat_to_matrix_np, os.path.join(root, "dslr"))
+    b3["dslr_inputs"] = check_b3_at_captured(torch, tps, dslr_b3, "the DSLR run's first derivs launch",
+                                             flat_sampler)
+    del dslr_b3
+    torch.cuda.empty_cache()
 
     # the ICP measurement path
     t0 = time.perf_counter()
@@ -1159,7 +1371,10 @@ def main() -> int:
     # B3 have two launch modes), and this run's numbers
     by_path = {"icp_scan_aligner": launches, "image_registrator": reg, "icp_bench": bench,
                "gather_probe": probe_launches}
-    measured = {"gn_fused": b1, "moment_gram": b2, "pyramid_sample": b3["derivs"], "gn_rows": b4a,
+    measured = {"gn_fused": b1, "moment_gram": b2,
+                "pyramid_sample": {**b3["derivs"],
+                                   **{k: b3[k] for k in ("pair_build", "dslr_inputs", "flat_sampler") if k in b3}},
+                "gn_rows": b4a,
                 "hbm_read_sum": b5b, **variants, **probes}
     report = []
     for kname, k in kernels.KERNELS.items():
@@ -1176,6 +1391,11 @@ def main() -> int:
                    for x in ("gn_fused", "gn_fused_cost_batch"))
     next(r for r in report if r["name"] == "gn_fused")["excess_ms"] = (full * (b1["ms"] - b1["bound_ms"])
                               + batch * (b1["cost_batch"]["ms"] - b1["cost_batch"]["bound_ms"]))
+    samples, builds = (sum(c.get(x, 0) for x in xs for c in by_path.values())
+                       for xs in (("pyramid_sample_derivs", "pyramid_sample_value"), ("pyramid_pairs",)))
+    pb = b3["pair_build"]
+    next(r for r in report if r["name"] == "pyramid_sample")["excess_ms"] = (
+        samples * (b3["derivs"]["ms"] - b3["derivs"]["bound_ms"]) + builds * (pb["ms"] - pb["bound_ms"]))
     # which kernel a later change should take up first: those that lose to their
     # library call, then by the excess; a kernel already redesigned is not taken again
     def loses(r):

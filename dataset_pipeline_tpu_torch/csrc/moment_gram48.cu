@@ -16,11 +16,12 @@ namespace {
 
 constexpr int kPadded = 48;
 
-__global__ void __launch_bounds__(moment::kThreads)
+__global__ void __launch_bounds__(moment::kThreads, 1)
 moment_gram48_kernel(const float* __restrict__ data, long long stride, int chunk,
                      float* __restrict__ parts) {
+  extern __shared__ __align__(16) float smem[];
   moment::gram_block<false>(data, stride, (long long)blockIdx.x * chunk, chunk,
-                            parts + (long long)blockIdx.x * kPadded * kPadded, kPadded);
+                            parts + (long long)blockIdx.x * kPadded * kPadded, kPadded, smem);
 }
 
 }  // namespace
@@ -30,7 +31,9 @@ extern "C" int dpt_moment_gram48(const void* data, int rows, int row_stride,
   if (rows < 13 || chunk <= 0 || nchunks <= 0 ||
       (long long)chunk * nchunks != (long long)row_stride)
     return (int)cudaErrorInvalidValue;
-  moment_gram48_kernel<<<nchunks, moment::kThreads, 0, (cudaStream_t)stream>>>(
+  const cudaError_t err = moment::allow_smem(moment_gram48_kernel);
+  if (err != cudaSuccess) return (int)err;
+  moment_gram48_kernel<<<nchunks, moment::kThreads, moment::kSmemBytes, (cudaStream_t)stream>>>(
       (const float*)data, (long long)row_stride, chunk, (float*)parts);
   return (int)cudaGetLastError();
 }

@@ -19,12 +19,13 @@
 namespace {
 
 template <bool kAccumulate>
-__global__ void __launch_bounds__(moment::kThreads)
+__global__ void __launch_bounds__(moment::kThreads, 1)
 moment_gram_repeat_kernel(const float* __restrict__ data, long long stride,
                           int rows_per_block, float* __restrict__ parts) {
+  extern __shared__ __align__(16) float smem[];
   moment::gram_block<kAccumulate>(
       data, stride, (long long)blockIdx.x * rows_per_block, rows_per_block,
-      parts + (long long)blockIdx.x * moment::kMono * moment::kMono, moment::kMono);
+      parts + (long long)blockIdx.x * moment::kMono * moment::kMono, moment::kMono, smem);
 }
 
 }  // namespace
@@ -35,17 +36,20 @@ extern "C" int dpt_moment_gram_repeat(const void* data2, int rows, int row_strid
   if (rows < 13 || rows_per_block <= 0 || nblocks <= 0 || repeats < 1 ||
       (long long)rows_per_block * nblocks != (long long)row_stride)
     return (int)cudaErrorInvalidValue;
+  cudaError_t err = moment::allow_smem(moment_gram_repeat_kernel<false>);
+  if (err == cudaSuccess) err = moment::allow_smem(moment_gram_repeat_kernel<true>);
+  if (err != cudaSuccess) return (int)err;
   const long long copy = (long long)rows * row_stride;
   cudaStream_t st = (cudaStream_t)stream;
   for (int r = 0; r < repeats; ++r) {
     const float* src = (const float*)data2 + (r % 2) * copy;
     if (r == 0)
-      moment_gram_repeat_kernel<false><<<nblocks, moment::kThreads, 0, st>>>(
+      moment_gram_repeat_kernel<false><<<nblocks, moment::kThreads, moment::kSmemBytes, st>>>(
           src, (long long)row_stride, rows_per_block, (float*)parts);
     else
-      moment_gram_repeat_kernel<true><<<nblocks, moment::kThreads, 0, st>>>(
+      moment_gram_repeat_kernel<true><<<nblocks, moment::kThreads, moment::kSmemBytes, st>>>(
           src, (long long)row_stride, rows_per_block, (float*)parts);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaSuccess;

@@ -14,13 +14,14 @@
 
 namespace {
 
-__global__ void __launch_bounds__(moment::kThreads)
+__global__ void __launch_bounds__(moment::kThreads, 1)
 moment_gram_thirds_kernel(const float* __restrict__ data, long long stride,
                           int third, float* __restrict__ parts) {
+  extern __shared__ __align__(16) float smem[];
   // thirds are consecutive: block i covers columns [i * third, (i + 1) * third)
   moment::gram_block<false>(
       data, stride, (long long)blockIdx.x * third, third,
-      parts + (long long)blockIdx.x * moment::kMono * moment::kMono, moment::kMono);
+      parts + (long long)blockIdx.x * moment::kMono * moment::kMono, moment::kMono, smem);
 }
 
 }  // namespace
@@ -31,7 +32,10 @@ extern "C" int dpt_moment_gram_thirds(const void* data, int rows, int row_stride
   if (rows < 13 || chunk <= 0 || chunk % 3 != 0 || nchunks <= 0 ||
       (long long)chunk * nchunks != (long long)row_stride)
     return (int)cudaErrorInvalidValue;
-  moment_gram_thirds_kernel<<<3 * nchunks, moment::kThreads, 0, (cudaStream_t)stream>>>(
+  const cudaError_t err = moment::allow_smem(moment_gram_thirds_kernel);
+  if (err != cudaSuccess) return (int)err;
+  moment_gram_thirds_kernel<<<3 * nchunks, moment::kThreads, moment::kSmemBytes,
+                              (cudaStream_t)stream>>>(
       (const float*)data, (long long)row_stride, chunk / 3, (float*)parts);
   return (int)cudaGetLastError();
 }

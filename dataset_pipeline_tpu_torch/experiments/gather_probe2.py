@@ -219,7 +219,9 @@ def compare_brick_with_flat(out: Report, device, pyr, flat, layout, pix, scale) 
     brick.build_brick_pyramid([p[0] for p in pyr])  # warm-up
     build_s, table_bytes, stages = 0.0, 0, {}
     gaps = {"value": 0.0, "dpx": 0.0, "dpy": 0.0, "ds": 0.0}
-    ref = tps.pyramid_sample(flat, layout, pix, scale, True)
+    # B3 reads the row-paired copy, built once per image chunk as the registrator does
+    pairs = tps.pair_rows(flat, layout) if flat.is_cuda else None
+    ref = tps.pyramid_sample(flat, layout, pix, scale, True, pairs)
     for b in range(images):
         made = []
         build_s += wall_s(lambda: made.append(brick.build_brick_pyramid([p[b] for p in pyr])),
@@ -236,7 +238,8 @@ def compare_brick_with_flat(out: Report, device, pyr, flat, layout, pix, scale) 
             if bool(ok.any()):
                 gaps[name] = max(gaps[name], float((got[k] - ref[k][b])[ok].abs().max()))
         del made, got
-    flat_s = 1e-3 * median_ms(lambda: tps.pyramid_sample(flat, layout, pix, scale, True), device)
+    flat_s = 1e-3 * median_ms(lambda: tps.pyramid_sample(flat, layout, pix, scale, True, pairs),
+                              device)
     brick_s = sum(stages.values())
     res = out(bench="brick_vs_flat", images=images, levels=L, obs=images * n_obs,
               pyramid_bytes=flat.numel() * 4, brick_table_bytes=table_bytes,

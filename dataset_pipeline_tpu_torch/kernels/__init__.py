@@ -64,11 +64,12 @@ KERNELS = {
          "dpt_gn_grid": []}),
     "moment_gram": Kernel(  # B2, ops/gn.py:moment_gram_partials
         "dpt_moment_gram", [_P, _I, _I, _I, _P, _I, _P],
-        "moment_gram.cu", f"{_JAX}:360", ("moment_gram",)),
-    "pyramid_sample": Kernel(  # B3, ops/pyramid_sample.py:pyramid_sample
+        "moment_gram.cu", f"{_JAX}:360", ("moment_gram",), {"dpt_moment_gram_grid": []}),
+    "pyramid_sample": Kernel(  # B3, ops/pyramid_sample.py:pyramid_sample and pair_rows
         "dpt_pyramid_sample", [_P, _L, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
         "pyramid_sample.cu", "dataset_pipeline_tpu/ops/brick.py:135",
-        ("pyramid_sample_derivs", "pyramid_sample_value")),
+        ("pyramid_sample_derivs", "pyramid_sample_value", "pyramid_pairs"),
+        {"dpt_pyramid_pairs": [_P, _L, _P, _L, _I, _P, _P, _P, _P, _I, _P]}),
     "gn_rows": Kernel(  # B4a, ops/gn.py:gn_rows
         "dpt_gn_rows", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P],
         "gn_rows.cu", f"{_JAX}:34", ("gn_rows",)),

@@ -36,15 +36,19 @@ from dataset_pipeline_tpu_torch.models.lie import quat_rotate, quat_to_matrix
 
 PACKED_ROWS = 13  # rows the kernels read: ps, ns, pt, nt, w
 N_MONO = 42
-# what one correspondence's Gram needs: the 903 FMAs of a 42x42 upper
-# triangle and the 43 operations that build the monomials
-MOMENT_FLOPS_PER_ROW = 2 * 903 + 43
+# the least work one correspondence's Gram needs: the monomials are a
+# Kronecker product a (x) b, so the 42x42 Gram has 28 x 21 distinct sums
+# (vech(a a^T) by w vech(n n^T)): 588 FMAs, and the 48 products that build
+# the 28 + 21 factors (csrc/moment_gram.cuh)
+MOMENT_FLOPS_PER_ROW = 2 * 588 + 48
 
 GN_MAX_CANDIDATES = 10  # pose sets of one cost batch (csrc/gn_fused.cu: kMaxCands)
 _GN_MAX_CLOUDS = 64  # poses the B1 kernels hold in shared memory (kMaxClouds)
 _GN_UNIT = 128  # columns a warp of the B1 kernels takes per trip
 _MOMENT_TILE = 256  # rows staged per pass by the B2 kernel
-_MOMENT_MAX_ROWS = 8192  # rows per block of the B2 kernel, at most
+_MOMENT_MIN_ROWS = 4096  # rows per block of the B2 kernel, at least (where the chunk allows):
+# a block's fixed costs (its first copies' latency, its reduction) stay small against its loop
+_MOMENT_MAX_ROWS = 16384  # ... and at most
 _ROWS_COLS_PER_BLOCK = 4096  # columns per block of the B4a kernel
 _ROWS_SMEM_FLOATS = 12032  # staging floats of the B4a kernel (csrc/gn_rows.cu)
 _ROWS_MAX_CLOUDS = 14  # its 4x4 output tiles must not outnumber its 256 threads
@@ -77,13 +81,6 @@ def _check_packed(data, chunk: int):
     if data.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {data.device}")
     return Mp // chunk
-
-
-def _largest_divisor(chunk: int, options) -> int:
-    for r in options:
-        if chunk % r == 0:
-            return r
-    raise ValueError(f"chunk={chunk} must be a multiple of {options[-1]} on CUDA")
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +295,7 @@ def moment_gram_partials(data, chunk: int):
 
     lib = kernels.library()
     Mp = data.shape[1]
-    rows_per_block = _moment_rows_per_block(chunk)
+    rows_per_block = _moment_rows_per_block(chunk, Mp, data.device)
     nblocks = Mp // rows_per_block
     parts = torch.empty((nblocks, N_MONO, N_MONO), dtype=torch.float32, device=data.device)
     err = lib.dpt_moment_gram(
@@ -309,10 +306,28 @@ def moment_gram_partials(data, chunk: int):
     return parts, chunk // rows_per_block
 
 
-def _moment_rows_per_block(chunk: int) -> int:
+def _moment_rows_per_block(chunk: int, Mp: int, device) -> int:
+    """Rows per block of the B2 kernel: a multiple of its 256-row tile that
+    divides ``chunk`` (a part lies inside one chunk), at most 16384 and at
+    least 4096 where the chunk has such a divisor, taking the fewest rows
+    per resident block over the whole launch (waves x rows per block, the
+    resident slots as the runtime reports them), the largest among equals.
+    At 8.06 M rows, chunk 49152, on 132 slots: 12288 rows, 5.0 waves, where
+    8192 rows take 7.5 waves, so 8."""
+    from dataset_pipeline_tpu_torch import kernels
+
     if chunk % _MOMENT_TILE != 0:
         raise ValueError(f"chunk={chunk} must be a multiple of {_MOMENT_TILE} on CUDA")
-    return _largest_divisor(chunk, range(min(chunk, _MOMENT_MAX_ROWS), 0, -_MOMENT_TILE))
+    slots = kernels.persistent_grid("dpt_moment_gram_grid", device)
+    options = [r for r in range(_MOMENT_TILE, min(chunk, _MOMENT_MAX_ROWS) + 1, _MOMENT_TILE)
+               if chunk % r == 0]
+    options = [r for r in options if r >= min(chunk, _MOMENT_MIN_ROWS)] or options
+
+    def rows_per_slot(r):
+        waves = -(-(Mp // r) // slots)
+        return waves * r, -r
+
+    return min(options, key=rows_per_slot)
 
 
 # ---------------------------------------------------------------------------
@@ -421,7 +436,7 @@ def moment_gram_repeat(data2, chunk: int = 49152, repeats: int = 1):
     from dataset_pipeline_tpu_torch import kernels
 
     Mp = data2.shape[2]
-    rows_per_block = _moment_rows_per_block(chunk)
+    rows_per_block = _moment_rows_per_block(chunk, Mp, data2.device)
     nblocks = Mp // rows_per_block
     parts = torch.empty((nblocks, N_MONO, N_MONO), dtype=torch.float32, device=data2.device)
     err = kernels.library().dpt_moment_gram_repeat(

@@ -39,6 +39,7 @@ from dataset_pipeline_tpu_torch.models.lie import SE3
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import (
     PyramidLayout,
     flatten_pyramid,
+    pair_rows,
     pyramid_sample,
 )
 from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_COLOR_HUBER, huber_rho, huber_weight
@@ -187,20 +188,23 @@ def _nbr_inten_ok(inten, ok, neighbors):
     return torch.where(nbr_ok, ge, torch.zeros_like(ge)), nbr_ok
 
 
-def _point_intensities(camera, params, pose_q, pose_t, points, flat, layout, obs_scale):
-    """(intensity, valid) (nb,M) of every point under the given state."""
+def _point_intensities(camera, params, pose_q, pose_t, points, flat, layout, obs_scale,
+                       pairs=None):
+    """(intensity, valid) (nb,M) of every point under the given state.
+    ``pairs``: the row-paired copy of ``flat`` that the sampling kernel reads
+    on the card (``ImageBatch.pairs``)."""
     p_cam = _batch_pose(pose_q, pose_t).apply(points)
     pix, valid = _project_full(camera, params, p_cam)
     val, ok = pyramid_sample(flat, layout, pix.contiguous(), obs_scale.contiguous(),
-                             with_derivs=False)
+                             with_derivs=False, pairs=pairs)
     return val, valid & ok
 
 
 def _cost_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, layout,
-                obs_scale, contrib):
+                obs_scale, contrib, pairs=None):
     """Summed (cost, count) of a chunk of images on one level (tensors)."""
     inten, ok = _point_intensities(camera, params, pose_q, pose_t, points, flat, layout,
-                                   obs_scale)
+                                   obs_scale, pairs)
     nbr_inten, nbr_ok = _nbr_inten_ok(inten, ok, neighbors)
     all_ok = ok & torch.all(nbr_ok, -1) & contrib
     r = (nbr_inten - inten[..., None]) - desc
@@ -212,12 +216,12 @@ def _cost_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, l
 
 
 def _imgdesc_batch(camera, params, pose_q, pose_t, points, neighbors, flat, layout,
-                   obs_scale, contrib):
+                   obs_scale, contrib, pairs=None):
     """A chunk's contribution to the variable-descriptor mean: image-space
     descriptors of fully observed points summed over the chunk's images
     (desc_sum (M,K), count (M,) int32)."""
     inten, ok = _point_intensities(camera, params, pose_q, pose_t, points, flat, layout,
-                                   obs_scale)
+                                   obs_scale, pairs)
     nbr_inten, nbr_ok = _nbr_inten_ok(inten, ok, neighbors)
     all_ok = ok & torch.all(nbr_ok, -1) & contrib
     d = nbr_inten - inten[..., None]
@@ -287,7 +291,8 @@ def _gram_assemble(J, inten, ok, neighbors, desc, contrib_mask):
 
 
 def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, layout,
-              obs_scale, contrib, radius, optimize_intrinsics: bool, dynamic_scale: bool):
+              obs_scale, contrib, radius, optimize_intrinsics: bool, dynamic_scale: bool,
+              pairs=None):
     """Per-image H (nb,V,V), b (nb,V) and the chunk's summed cost/count on
     one level. Variable layout of a block: [P intrinsics | 6 pose].
 
@@ -310,7 +315,8 @@ def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, lay
     pix, _ = geom(eps0, params)
     _, valid = _project_full(camera, params, pose0.apply(points))
     inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
-                                                obs_scale.contiguous(), with_derivs=True)
+                                                obs_scale.contiguous(), with_derivs=True,
+                                                pairs=pairs)
     ok = valid & okS
 
     # forward mode over the 6+P tangents (what jacfwd computes), vmapped in
@@ -353,19 +359,19 @@ def _visibility_mask_levels(camera, pose_q, pose_t, occl, level_args, current_sc
 
 
 def _hb_batch_levels(camera, params, pose_q, pose_t, entries, flat, layout,
-                     optimize_intrinsics: bool, dynamic_scale: bool):
+                     optimize_intrinsics: bool, dynamic_scale: bool, pairs=None):
     """A chunk's H,b accumulations, one per (level, residual type) entry of
     (points, neighbors, desc, obs_scale, contrib, radius)."""
     return tuple(_hb_batch(camera, params, pose_q, pose_t, pts, nbr, d, flat, layout, sc,
-                           m, rad, optimize_intrinsics, dynamic_scale)
+                           m, rad, optimize_intrinsics, dynamic_scale, pairs)
                  for (pts, nbr, d, sc, m, rad) in entries)
 
 
-def _cost_batch_levels(camera, params, pose_q, pose_t, entries, flat, layout):
+def _cost_batch_levels(camera, params, pose_q, pose_t, entries, flat, layout, pairs=None):
     """A chunk's cost evaluations, one per (points, neighbors, desc,
     obs_scale, contrib) entry."""
     return tuple(_cost_batch(camera, params, pose_q, pose_t, pts, nbr, d, flat, layout,
-                             sc, m)
+                             sc, m, pairs)
                  for (pts, nbr, d, sc, m) in entries)
 
 
@@ -379,13 +385,15 @@ def _chunk_indices(n: int, chunk: int):
 @dataclass
 class ImageBatch:
     """One image chunk of one group: indices and the chunk's flat pyramid,
-    built once (the level geometry is shared by every image)."""
+    built once (the level geometry is shared by every image), and on the card
+    the row-paired copy that the sampling kernel reads."""
 
     idx: np.ndarray  # (nb,) image indices within the group
     idx_dev: torch.Tensor  # (nb,) device copy of ``idx``
     flat: torch.Tensor  # (nb, total) float32 pyramid
     layout: PyramidLayout
     mask_flat: Optional[torch.Tensor] = None  # (nb, total) uint8 or None
+    pairs: Optional[torch.Tensor] = None  # (nb, layout.pair_total) float32 on CUDA, else None
 
     @property
     def nb(self) -> int:
@@ -438,7 +446,8 @@ class PhotometricOptimizer:
     # -- image chunking --------------------------------------------------------
 
     def _build_batches(self):
-        """Per group, the image chunks with their flat pyramids."""
+        """Per group, the image chunks with their flat pyramids (and on the
+        card their row-paired copies; the plain sampler reads ``flat``)."""
         self._batches = []
         for g in self.p.groups:
             batches = []
@@ -449,7 +458,8 @@ class PhotometricOptimizer:
                 mask_flat = None
                 if g.mask_pyramid:
                     mask_flat, _ = flatten_pyramid([m[idx_dev] for m in g.mask_pyramid])
-                batches.append(ImageBatch(idx, idx_dev, flat, layout, mask_flat))
+                pairs = pair_rows(flat, layout) if flat.is_cuda else None
+                batches.append(ImageBatch(idx, idx_dev, flat, layout, mask_flat, pairs))
             self._batches.append(batches)
 
     # -- variable indexing ---------------------------------------------------
@@ -528,7 +538,7 @@ class PhotometricOptimizer:
                     mask, s = vis[gi][l][bi]
                     d, ok = _imgdesc_batch(g.camera, g.camera.params, g.poses.q[b.idx_dev],
                                            g.poses.t[b.idx_dev], level.points, level.neighbors,
-                                           b.flat, b.layout, s, mask)
+                                           b.flat, b.layout, s, mask, b.pairs)
                     desc_sum = desc_sum + d
                     count = count + ok
             desc = desc_sum / torch.clamp(count, min=1)[:, None]
@@ -572,7 +582,7 @@ class PhotometricOptimizer:
                         entries.append((level.points, level.neighbors, desc, sc, m))
                         keys.append(ti)
                 for c, n in _cost_batch_levels(g.camera, group_params[gi], q, t, entries,
-                                               b.flat, b.layout):
+                                               b.flat, b.layout, b.pairs):
                     terms.extend([c.double(), n.double()])
         fetched = torch.stack(terms).cpu().numpy() if terms else np.zeros(0)
         sums, counts = {}, {}
@@ -626,7 +636,7 @@ class PhotometricOptimizer:
                         metas.append(dict(gi=gi, ti=ti, w=w_t, batch=b, nint=nint, P=P))
                 outs = _hb_batch_levels(g.camera, g.camera.params, g.poses.q[b.idx_dev],
                                         g.poses.t[b.idx_dev], entries, b.flat, b.layout,
-                                        self.optimize_intrinsics, self.scale_jacobian)
+                                        self.optimize_intrinsics, self.scale_jacobian, b.pairs)
                 pend.extend(zip(metas, outs))
 
         # one transfer, then assemble the big system in numpy

@@ -61,12 +61,17 @@ class _Variant:
 
     def __enter__(self):
         if self.name == "plain_sampler":
-            po.pyramid_sample = ps.sample_plain
+            po.pyramid_sample = plain_sampler
         elif self.name == "single_gram":
             po._GRAM_ROWS = 1 << 40
 
     def __exit__(self, *exc):
         po.pyramid_sample, po._GRAM_ROWS = self.saved
+
+
+def plain_sampler(flat, layout, pix0, obs_scale, with_derivs=True, pairs=None):
+    """The plain sampler in the kernel wrapper's signature (it reads ``flat``)."""
+    return ps.sample_plain(flat, layout, pix0, obs_scale, with_derivs)
 
 
 def run_iterations(problem, init, args, params, device, iterations: int) -> dict:

@@ -6,14 +6,20 @@
 // by the threads of the one block that runs at a time); a grid may be 2-D.
 // The round-to-nearest intrinsics are the plain operators (g++ does not
 // contract them into FMAs for the baseline x86-64 target). The test rewrites
-// `kernel<<<grid, block, 0, stream>>>(args)` into `emu_launch(kernel, grid,
-// block, args)`; a kernel may be a template instantiation. `float4` is a plain
-// struct of four floats. A warp is 32 consecutive threads with a barrier of
+// `kernel<<<grid, block, smem, stream>>>(args)` into `emu_launch(kernel, grid,
+// block, smem, args)`; a kernel may be a template instantiation. Dynamic
+// shared memory (`extern __shared__ T name[];`, which the test rewrites into
+// `T* name = emu_dynamic_smem<T>();`) is one buffer of `smem` bytes per block,
+// filled with NaN bytes so that a read of a slot no thread wrote shows;
+// `cudaFuncSetAttribute` accepts any request. `float2` and `float4` are plain
+// structs of two and four floats. A warp is 32 consecutive threads with a barrier of
 // its own: `__shfl_xor_sync` is an exchange array between two waits on it,
-// so every lane of the warp must call it. `atomicAdd` on an unsigned int and
+// so every lane of the warp must call it, as `__syncwarp`, one wait on it. `atomicAdd` on an unsigned int and
 // `__threadfence` are the host's atomics (blocks run in order, so the last
 // block of the grid draws the last ticket); `__ldcg` and `__ldcs` are plain loads. The
 // device has 2 SMs and one resident block per SM, whatever the kernel.
+// cp.async (CUDA's pipeline primitives) is emulated in
+// cuda_pipeline_primitives.h beside this file.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -33,6 +39,11 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(8) float2 {
+  float x, y;
+};
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float2 make_float2(float x, float y) { return {x, y}; }
 
 struct dim3 {
   unsigned x, y, z;
@@ -56,15 +67,18 @@ inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
   bar.arrive_and_wait();
   return r;
 }
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __shared__ static
 #define __restrict__ __restrict
+#define __align__(n) alignas(n)
 template <class T>
 inline T __ldg(const T* p) { return *p; }
 template <class T>
@@ -86,13 +100,21 @@ template <class F>
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F, int, size_t) {
   return *blocks = 1, cudaSuccess;
 }
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+inline std::vector<float4> emu_dynamic;  // the running block's dynamic shared memory
+template <class T>
+inline T* emu_dynamic_smem() { return reinterpret_cast<T*>(emu_dynamic.data()); }
 
 template <class F, class... A>
-void emu_launch(F kernel, dim3 grid, int block, A... args) {
+void emu_launch(F kernel, dim3 grid, int block, size_t smem, A... args) {
   gridDim = grid;
   blockDim = dim3(block);
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
+      emu_dynamic.assign((smem + sizeof(float4) - 1) / sizeof(float4), float4{});
+      std::memset(static_cast<void*>(emu_dynamic.data()), 0xff, emu_dynamic.size() * sizeof(float4));
       std::barrier<> bar(block);
       emu_barrier = &bar;
       emu_exchange.assign(block, 0);

@@ -104,7 +104,7 @@ def test_gn_fused_rejects_misaligned_data_on_the_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk", [256, 768, 49152])
+@pytest.mark.parametrize("chunk", [256, 512, 768, 49152])
 def test_moment_gram_kernel_matches_plain(cuda_device, chunk):
     rng = np.random.RandomState(60)
     groups, _ = _groups(rng, 2, [5000, 30000])
@@ -112,6 +112,10 @@ def test_moment_gram_kernel_matches_plain(cuda_device, chunk):
     n0 = gn.LAUNCHES["moment_gram"]
     parts, per_chunk = gn.moment_gram_partials(data, chunk)
     assert gn.LAUNCHES["moment_gram"] == n0 + 1
+    # the 28 x 21 factored sums are scattered to both triangles: exactly symmetric,
+    # and added in a fixed order: bitwise reproducible
+    assert torch.equal(parts, parts.transpose(1, 2))
+    assert torch.equal(parts, gn.moment_gram_partials(data, chunk)[0])
     got = parts.double().cpu().numpy().reshape(len(gid), per_chunk, 42, 42).sum(1)
     ref = gn.moment_gram_plain(data.double(), chunk).cpu().numpy()
     for k in range(len(gid)):
@@ -164,20 +168,44 @@ def _b3_inputs(device, nb, H, W, L, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,with_derivs", [(1, True), (5, True), (5, False), (3, True)])
+@pytest.mark.parametrize("L,with_derivs", [(1, True), (5, True), (5, False), (3, True), (1, False),
+                                           (3, False)])
 def test_pyramid_sample_kernel_matches_plain(cuda_device, L, with_derivs):
     tps, flat, layout, pix, scale = _b3_inputs(cuda_device, 3, 257, 383, L, 20000, 70 + L)
     key = "pyramid_sample_derivs" if with_derivs else "pyramid_sample_value"
-    n0 = gn.LAUNCHES[key]
-    got = tps.pyramid_sample(flat, layout, pix, scale, with_derivs)
-    assert gn.LAUNCHES[key] == n0 + 1
-    again = tps.pyramid_sample(flat, layout, pix, scale, with_derivs)
+    n0, p0 = gn.LAUNCHES[key], gn.LAUNCHES["pyramid_pairs"]
+    got = tps.pyramid_sample(flat, layout, pix, scale, with_derivs)  # builds the paired copy
+    assert gn.LAUNCHES[key] == n0 + 1 and gn.LAUNCHES["pyramid_pairs"] == p0 + 1
+    pairs = tps.pair_rows(flat, layout)  # as the registrator: once per image chunk
+    again = tps.pyramid_sample(flat, layout, pix, scale, with_derivs, pairs)
+    assert gn.LAUNCHES["pyramid_pairs"] == p0 + 2
     ref = tps.sample_plain(flat, layout, pix, scale, with_derivs)
     ok = ref[-1]
     assert torch.equal(got[-1], ok)  # ok bit-equal, integer coordinates included
+    assert torch.equal(again[-1], ok)
     for g, a, r in zip(got[:-1], again[:-1], ref[:-1]):
         assert torch.equal(g, a)
         np.testing.assert_allclose(g[ok].cpu().numpy(), r[ok].cpu().numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shapes", [[(257, 383), (128, 191), (64, 95)], [(5, 2)], [(6, 7), (3, 3)]])
+def test_pyramid_pairs_kernel_matches_plain(cuda_device, shapes):
+    """The row-paired copy B3 reads: bit for bit its plain version, padding
+    of odd widths included, and every level 16-byte aligned."""
+    from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
+
+    rng = np.random.RandomState(len(shapes))
+    pyr = [torch.from_numpy(rng.randn(3, h, w).astype(np.float32)).to(cuda_device) for h, w in shapes]
+    flat, layout = tps.flatten_pyramid(pyr)
+    n0 = gn.LAUNCHES["pyramid_pairs"]
+    pairs = tps.pair_rows(flat, layout)
+    assert gn.LAUNCHES["pyramid_pairs"] == n0 + 1
+    assert pairs.data_ptr() % 16 == 0 and all(o % 4 == 0 for o in layout.pair_offs)
+    assert torch.equal(pairs, tps.pair_rows_plain(flat, layout))
+    with pytest.raises(ValueError, match="row-paired copy"):
+        tps.pyramid_sample(flat, layout, torch.zeros((3, 4, 2), device=cuda_device),
+                           torch.zeros((3, 4), device=cuda_device), True, pairs[:, 4:])
 
 
 @pytest.mark.cuda

@@ -25,7 +25,8 @@ from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
 torch.set_num_threads(2)
 CSRC = Path(gn.__file__).resolve().parent.parent / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<([^,]+),\s*([^,]+),\s*0,\s*([^>]+)>>>\(")
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\(")
+_DYNAMIC_SMEM = re.compile(r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?(\w+)\s+(\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +40,8 @@ def emu(tmp_path_factory):
         (out / cuh.name).write_text(cuh.read_text())
     for cu in sorted(CSRC.glob("*.cu")):
         cpp = out / (cu.stem + ".cpp")
-        cpp.write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, ", cu.read_text()))
+        src = _DYNAMIC_SMEM.sub(r"\1* \2 = emu_dynamic_smem<\1>();", cu.read_text())
+        cpp.write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, ", src))
         srcs.append(str(cpp))
     lib = out / "libemu.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{EMU}",
@@ -156,11 +158,12 @@ def test_persistent_grid_queries_emulated(emu):
     kernel rounds to a multiple of 8 blocks, one per row, and takes 8 at least)."""
     assert emu.dpt_gn_grid() == 2
     assert emu.dpt_hbm_read_sum_grid() == 8
+    assert emu.dpt_moment_gram_grid() == 2
 
 
-@pytest.mark.parametrize("rows_per_block", [256, 512])
-def test_moment_gram_kernel_emulated(emu, rows_per_block):
-    chunk = 1024
+@pytest.mark.parametrize("rows_per_block,chunk", [(256, 1024), (512, 1024), (2048, 2048)])
+def test_moment_gram_kernel_emulated(emu, rows_per_block, chunk):
+    """2048 rows are eight tiles: the ring of four raw tiles wraps twice."""
     data, *_ = _packed(2, [1500, 600], chunk, seed=4)
     Mp = data.shape[1]
     nblocks = Mp // rows_per_block
@@ -189,25 +192,40 @@ def test_entry_points_reject_bad_arguments(emu):
     assert emu.dpt_gn_cost_batch(d, 13, 512, d, d, d, 0, 2, 256, 1, d, d, d, d, None) != 0  # K = 0
 
 
+def _pairs_emulated(emu, flat, layout):
+    """The row-paired copy by the kernel; NaN where it writes nothing."""
+    nb, L = flat.shape[0], layout.levels
+    pairs = torch.full((nb, layout.pair_total), float("nan"))
+    assert emu.dpt_pyramid_pairs(
+        flat.data_ptr(), layout.total, pairs.data_ptr(), layout.pair_total, nb,
+        (ctypes.c_int * L)(*layout.hs), (ctypes.c_int * L)(*layout.ws),
+        (ctypes.c_longlong * L)(*layout.offs), (ctypes.c_longlong * L)(*layout.pair_offs), L,
+        None) == 0
+    return pairs
+
+
 def _pyramid_emulated(emu, flat, layout, pix, scale, with_derivs):
     nb, n = scale.shape
     L = layout.levels
+    pairs = _pairs_emulated(emu, flat, layout)
     outs = [torch.full((nb, n), float("nan")) for _ in range(4)]
     ok = torch.zeros((nb, n), dtype=torch.bool)
     ptrs = [o.data_ptr() for o in outs[1:]] if with_derivs else [None] * 3
     err = emu.dpt_pyramid_sample(
-        flat.data_ptr(), layout.total, nb, (ctypes.c_int * L)(*layout.hs),
-        (ctypes.c_int * L)(*layout.ws), (ctypes.c_longlong * L)(*layout.offs), L,
+        pairs.data_ptr(), layout.pair_total, nb, (ctypes.c_int * L)(*layout.hs),
+        (ctypes.c_int * L)(*layout.ws), (ctypes.c_longlong * L)(*layout.pair_offs), L,
         pix.data_ptr(), scale.data_ptr(), n, int(with_derivs), outs[0].data_ptr(), *ptrs,
         ok.data_ptr(), None)
     assert err == 0
     return (outs[0], *outs[1:], ok) if with_derivs else (outs[0], ok)
 
 
-@pytest.mark.parametrize("L,with_derivs", [(1, True), (4, True), (4, False), (3, True)])
+@pytest.mark.parametrize("L,with_derivs", [(1, True), (4, True), (4, False), (3, True), (1, False),
+                                           (3, False)])
 def test_pyramid_sample_kernel_emulated(emu, L, with_derivs):
     """Both modes against the plain version: ``ok`` bit-equal, including
-    observations exactly on integer pixel coordinates and integer scales."""
+    observations exactly on integer pixel coordinates and integer scales;
+    the taps come from the row-paired copy (odd level widths pad its rows)."""
     rng = np.random.RandomState(20 + L)
     nb, H, W, n = 2, 37, 53, 1500
     pyr = [torch.from_numpy((rng.rand(nb, H, W) * 255).astype(np.float32))]
@@ -233,20 +251,45 @@ def test_pyramid_sample_kernel_emulated(emu, L, with_derivs):
         np.testing.assert_allclose(a[ok].numpy(), b[ok].numpy(), rtol=1e-6, atol=1e-4)
 
 
+@pytest.mark.parametrize("shapes", [[(37, 53), (18, 26), (9, 13), (4, 6)], [(5, 2)], [(6, 7), (3, 3)]])
+def test_pyramid_pairs_kernel_emulated(emu, shapes):
+    """The row-paired copy by the kernel equals its plain version bit for
+    bit, padding included: odd widths, the narrowest level (W = 2) and a
+    single level."""
+    rng = np.random.RandomState(len(shapes))
+    pyr = [torch.from_numpy(rng.randn(3, h, w).astype(np.float32)) for h, w in shapes]
+    flat, layout = tps.flatten_pyramid(pyr)
+    assert torch.equal(_pairs_emulated(emu, flat, layout), tps.pair_rows_plain(flat, layout))
+
+
 def test_pyramid_sample_entry_point_rejects_bad_arguments(emu):
-    flat = torch.zeros((1, 80))
+    # levels 8x8 and 4x4: pair rows of 16 and 8 floats at 0 and 112, 136 in all
+    pairs = torch.zeros((1, 136))
     hs, ws = (ctypes.c_int * 2)(8, 4), (ctypes.c_int * 2)(8, 4)
-    offs = (ctypes.c_longlong * 2)(0, 64)
+    offs = (ctypes.c_longlong * 2)(0, 112)
     v = torch.zeros(4)
     ok = torch.zeros(4, dtype=torch.bool)
     pix, sc = torch.zeros(8), torch.zeros(4)
     args = (pix.data_ptr(), sc.data_ptr(), 4, 0, v.data_ptr(), None, None, None, ok.data_ptr(),
             None)
-    assert emu.dpt_pyramid_sample(flat.data_ptr(), 80, 1, hs, ws, offs, 2, *args) == 0
-    assert emu.dpt_pyramid_sample(flat.data_ptr(), 70, 1, hs, ws, offs, 2, *args) != 0
-    assert emu.dpt_pyramid_sample(flat.data_ptr(), 80, 1, hs, ws, offs, 0, *args) != 0
+    p = pairs.data_ptr()
+    assert emu.dpt_pyramid_sample(p, 136, 1, hs, ws, offs, 2, *args) == 0
+    assert emu.dpt_pyramid_sample(p, 132, 1, hs, ws, offs, 2, *args) != 0  # level 1 overruns
+    assert emu.dpt_pyramid_sample(p, 138, 1, hs, ws, offs, 2, *args) != 0  # stride % 4
+    assert emu.dpt_pyramid_sample(p + 8, 136, 1, hs, ws, offs, 2, *args) != 0  # not 16-byte aligned
+    assert emu.dpt_pyramid_sample(p, 136, 1, hs, ws, (ctypes.c_longlong * 2)(0, 110), 2, *args) != 0
+    assert emu.dpt_pyramid_sample(p, 136, 1, hs, ws, offs, 0, *args) != 0
     derivs = args[:3] + (1,) + args[4:]  # derivatives requested without buffers
-    assert emu.dpt_pyramid_sample(flat.data_ptr(), 80, 1, hs, ws, offs, 2, *derivs) != 0
+    assert emu.dpt_pyramid_sample(p, 136, 1, hs, ws, offs, 2, *derivs) != 0
+    flat = torch.zeros((1, 80))
+    poffs = (ctypes.c_longlong * 2)(0, 112)
+    flat_offs = (ctypes.c_longlong * 2)(0, 64)
+    assert emu.dpt_pyramid_pairs(flat.data_ptr(), 80, p, 136, 1, hs, ws, flat_offs, poffs, 2,
+                                 None) == 0
+    assert emu.dpt_pyramid_pairs(flat.data_ptr(), 70, p, 136, 1, hs, ws, flat_offs, poffs, 2,
+                                 None) != 0  # flat level 1 overruns
+    assert emu.dpt_pyramid_pairs(flat.data_ptr(), 80, p, 132, 1, hs, ws, flat_offs, poffs, 2,
+                                 None) != 0  # paired level 1 overruns
 
 
 # ---------------------------------------------------------------------------
@@ -304,8 +347,9 @@ def test_moment_gram48_kernel_emulated(emu, chunk):
         np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=1e-6 * np.abs(ref[k]).max())
 
 
-@pytest.mark.parametrize("chunk", [768, 384])
+@pytest.mark.parametrize("chunk", [768, 384, 3300])
 def test_moment_gram_thirds_kernel_emulated(emu, chunk):
+    """A third of 3300 is 1100 rows: five tiles, the last partly masked."""
     data, *_ = _packed(2, [1000, 700], chunk, seed=6)
     n = data.shape[1] // chunk
     parts = torch.full((n, 3, 42, 42), float("nan"))

@@ -13,6 +13,7 @@ import torch
 from dataset_pipeline_tpu.icp import moments as jm
 from dataset_pipeline_tpu.icp.point_to_plane import _icp_hb_cost as j_icp_hb_cost
 from dataset_pipeline_tpu_torch.icp import moments as tm
+from dataset_pipeline_tpu_torch.ops import gn
 
 torch.set_num_threads(2)
 
@@ -107,6 +108,51 @@ def test_monomials_and_moment_gram():
     np.testing.assert_allclose(P, P_ref, rtol=2e-5, atol=2e-5 * np.abs(P_ref).max())
 
 
+def _kron_gram(data, chunk):
+    """The factored Gram the B2 kernels compute (csrc/moment_gram.cuh): the
+    dense 28 x 21 product of u = vech(a a^T), a = [1, ps, pt], and v = w
+    vech(n n^T), n = [ns, nt], per chunk, then each 42x42 entry (6i+c, 6j+d)
+    gathered from its sum (vech(i, j), vech(c, d))."""
+    a = torch.cat([torch.ones_like(data[:1]), data[0:3], data[6:9]])
+    n = torch.cat([data[3:6], data[9:12]])
+    i7, i6 = torch.triu_indices(7, 7), torch.triu_indices(6, 6)
+    u = (a[i7[0]] * a[i7[1]]).reshape(28, -1, chunk)
+    v = (data[12] * n[i6[0]] * n[i6[1]]).reshape(21, -1, chunk)
+    S = torch.einsum("pgr,qgr->gpq", u, v)
+    vech = []
+    for k in (7, 6):
+        m = torch.zeros((k, k), dtype=torch.long)
+        iu = torch.triu_indices(k, k)
+        m[iu[0], iu[1]] = torch.arange(iu.shape[1])
+        vech.append(torch.maximum(m, m.T))  # symmetric: (j, i) -> vech(i, j)
+    k = torch.arange(42)
+    p = vech[0][k[:, None] // 6, k[None, :] // 6]
+    q = vech[1][k[:, None] % 6, k[None, :] % 6]
+    return S[:, p, q]
+
+
+@pytest.mark.parametrize("chunk,offset,seed", [(256, 0.0, 31), (1024, 0.0, 32), (512, 50.0, 33)])
+def test_kronecker_factored_gram_matches_plain_and_jax(chunk, offset, seed):
+    """Float64: the 28 x 21 factored product and its gather equal the plain
+    42x42 Gram (moment_gram_plain) to rounding, and the JAX group Gram
+    (moment_gram_xla, float32 HIGHEST) within its tolerance; also far from
+    the origin, where the monomials cancel."""
+    rng = np.random.RandomState(seed)
+    groups, _ = _random_groups(rng, 2, 900)
+    for g in groups:
+        g["ps"] += np.float32(offset)
+        g["pt"] += np.float32(offset)
+    data, gid = tm.pack_group_data(groups, chunk, rows=13, device="cpu")
+    got = _kron_gram(data.double(), chunk)
+    plain = gn.moment_gram_plain(data.double(), chunk)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), rtol=0,
+                               atol=1e-13 * float(plain.abs().max()))
+    for k, P_ref in enumerate(_P(groups)):
+        P = got[torch.as_tensor(gid == k)].sum(0).numpy()
+        np.testing.assert_array_equal(P, P.T)
+        np.testing.assert_allclose(P, P_ref, rtol=2e-5, atol=2e-5 * np.abs(P_ref).max())
+
+
 @pytest.mark.parametrize("chunk", [256, 49152])
 def test_compute_group_moments_matches_jax(chunk):
     rng = np.random.RandomState(5)
@@ -191,3 +237,23 @@ def test_tf32_stays_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
     assert torch.get_float32_matmul_precision() == "highest"
+
+
+@pytest.mark.parametrize("Mp,chunk,slots,rows", [
+    (8_060_928, 49152, 132, 12288),   # 5.0 waves; 8192 rows would take 7.5, so 8
+    (1_032_192, 49152, 132, 8192),    # one wave
+    (28_016_640, 49152, 132, 16384),  # 12.95 waves
+    (4096, 256, 132, 256),            # a chunk below 4096 rows is one block
+    (7680, 768, 2, 768),
+    (171_520, 17152, 132, 256),       # 67 x 256: no divisor from 4096 to 16384
+])
+def test_moment_gram_blocks_follow_the_resident_slots(monkeypatch, Mp, chunk, slots, rows):
+    """B2's rows per block: a divisor of the chunk from 4096 to 16384 rows
+    (below 4096 only where there is none) with the fewest rows per resident block over the launch (the slots are
+    the runtime's count, here given), the largest among equals."""
+    from dataset_pipeline_tpu_torch import kernels
+
+    monkeypatch.setattr(kernels, "persistent_grid", lambda query, device: slots)
+    assert gn._moment_rows_per_block(chunk, Mp, "cuda") == rows
+    with pytest.raises(ValueError, match="multiple of 256"):
+        gn._moment_rows_per_block(chunk + 1, Mp, "cuda")

@@ -119,3 +119,28 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="unsupported device"):
         tps.pyramid_sample(flat.to("meta"), layout, torch.zeros(2, 5, 2, device="meta"),
                            torch.zeros(2, 5, device="meta"))
+
+
+@pytest.mark.parametrize("shapes", [[(45, 61), (22, 30), (11, 15)], [(8, 8), (4, 4)], [(3, 5)]])
+def test_pair_rows_interleave_the_flat_pyramid_rows(shapes):
+    """The row-paired copy the kernel reads, against ``flatten_pyramid``:
+    entry 2x + r of pair row y of level l is that level's (y + r, x); pair
+    rows are padded with zeros to a multiple of 4 floats (odd widths), and
+    every level starts 16-byte aligned. On the CPU the wrapper is the plain
+    version."""
+    rng = np.random.RandomState(len(shapes))
+    pyr = [torch.from_numpy(rng.randn(2, h, w).astype(np.float32)) for h, w in shapes]
+    flat, layout = tps.flatten_pyramid(pyr)
+    pairs = tps.pair_rows(flat, layout)
+    assert torch.equal(pairs, tps.pair_rows_plain(flat, layout))
+    assert pairs.shape == (2, layout.pair_total)
+    for lvl, (h, w), off in zip(pyr, shapes, layout.pair_offs):
+        ps = tps.pair_stride(w)
+        assert off % 4 == 0 and ps % 4 == 0 and 2 * w <= ps < 2 * w + 4
+        rows = pairs[:, off:off + (h - 1) * ps].reshape(2, h - 1, ps)
+        assert torch.equal(rows[..., 0:2 * w:2], lvl[:, :-1])
+        assert torch.equal(rows[..., 1:2 * w:2], lvl[:, 1:])
+        assert not rows[..., 2 * w:].any()
+    assert layout.pair_total == sum((h - 1) * tps.pair_stride(w) for h, w in shapes)
+    with pytest.raises(ValueError):
+        tps.pair_rows(flat[:, 1:], layout)
