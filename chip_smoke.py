@@ -40,11 +40,17 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   batch of 4096 tiles), E5 (``tile_gather``, 24576 tiles of 512 tasks), E6
   and E7 (``row_extract``, ``row_extract_packed``, 1,998,848 observations)
   against their plain versions in float32 and float64, each beside the one
-  PyTorch call that computes the same function where there is one; then
-  ``experiments.gather_probe.main`` and ``gather_probe2.main`` at the JAX
-  scripts' sizes, whose JSON lines are printed; then the brick sampler
-  (``ops/brick.py``: table build, two row gathers, E7) against B3 on B3's own
-  inputs.
+  PyTorch call that computes the same function where there is one; the
+  calibration of scattered sector reads (E6 and E7 timed at four lane
+  classes, which tell whether the card serves a 32-byte sector as itself or
+  as a 64-byte atom, and the floor that gives at B5b's read rate), E6 / E7 on
+  rows of odd width 4 bytes off a 16-byte boundary, and the SASS of their
+  loads; then ``experiments.gather_probe.main`` and ``gather_probe2.main`` at
+  the JAX scripts' sizes, whose JSON lines are printed; then the brick
+  sampler (``ops/brick.py``: table build, two row gathers, E7) against B3 on
+  B3's own inputs. With ``--compare_row_extract_sources E6_CU E7_CU`` (a
+  one-off) an earlier E6 and E7 are built from those files and held bit for
+  bit against the shipped ones, calibrated, and timed in turns with them.
 
 It fails (non-zero exit, no result line) if CUDA is absent, a kernel does
 not build, launch or agree, a path did not launch each of its kernels, the
@@ -97,7 +103,7 @@ B1_COST_FLOPS = 85  # per correspondence and candidate: posing 66, residuals 14,
 B1_CANDIDATES = 10  # the LM ladder's tries
 # kernels already redesigned for this card: the order below does not take them again
 REDESIGNED = ("hbm_read_sum", "gn_fused", "pyramid_sample", "moment_gram", "moment_gram48",
-              "moment_gram_thirds", "moment_gram_repeat")
+              "moment_gram_thirds", "moment_gram_repeat", "row_extract", "row_extract_packed")
 # the operation count of a moment Gram row over the 42x42 upper triangle: 903
 # FMAs and 43 for the monomials (gn.MOMENT_FLOPS_PER_ROW, the least work, is
 # the Kronecker-factored count); printed beside it so earlier shares compare
@@ -721,10 +727,93 @@ def check_tile_gather(torch, gather, seed: int):
         gather.tile_gather_plain, (tiles, iy, ix, fy, fx), False, nbytes, 20 * n * cap)
 
 
-def check_row_extracts(torch, gather, seed: int):
-    """E6 and E7 at 1,998,848 observations on N(0,1) rows. An observation's
-    taps touch one sector of a row per lane pair, two when the pair straddles
-    (the first lane is the last float of a sector)."""
+def pair_units(lanes, floats: int) -> int:
+    """The aligned units of ``floats`` floats (8: a 32-byte sector, 16: a
+    64-byte chunk) that the lane pairs (l, l + 1) of rows starting on such a
+    unit touch, summed over the pairs: one each, two where the pair straddles."""
+    return sum(int(ln.numel()) + int((ln % floats == floats - 1).sum()) for ln in lanes)
+
+
+def e6_pairs(lane):
+    return [lane, lane]  # lanes l, l + 1 of r0 and of r1
+
+
+def e7_pairs(la, lb, bx: int):
+    return [la, la + bx, lb, lb + bx]  # each level's rows y and y + 1 of the footprint
+
+
+def lane_classes(torch, g, n: int, hi: int, uniform):
+    """The calibration's four lane sets for lanes in [0, hi]: (a) ``uniform``;
+    (b) l = 0 mod 8, one sector per pair; (c) l = 7 mod 16, two sectors in one
+    64-byte chunk; (d) l = 15 mod 16, two sectors across a 64-byte boundary."""
+    def every(step, first):
+        k = torch.randint(0, (hi - first) // step + 1, (n, 1), generator=g, device="cuda",
+                          dtype=torch.int32)
+        return k * step + first
+
+    return {"a uniform": uniform, "b l%8=0": every(8, 0), "c l%16=7": every(16, 7),
+            "d l%16=15": every(16, 15)}
+
+
+def calibrate_row_extracts(torch, e6, e7, ra, rb, fr, lanes6, lanes7, read_bps: float, label: str):
+    """How the card serves scattered sector reads: E6 and E7 (``e6``, ``e7``:
+    callables with the wrappers' signatures) timed on the same rows with the
+    four lane classes of ``lane_classes`` and nothing else changed, each held
+    bit for bit against its float32 plain version. Prints ms and sector
+    requests per observation per class, the model the times fit, and beside
+    the bound (32-byte sectors) the floor that the winning model's bytes give
+    at ``read_bps``, the read rate B5b measured in this run."""
+    from dataset_pipeline_tpu_torch.ops import gather
+
+    n = ra.shape[0]
+    cases = {"E6": (lambda ln: (ra, rb, ln, fr[0], fr[1]), e6, gather.row_extract_plain,
+                    e6_pairs, lanes6, 44),
+             "E7": (lambda ln: (ra, rb, ln, ln.flip(0), *fr), e7, gather.row_extract_packed_plain,
+                    lambda ln: e7_pairs(ln, ln.flip(0), gather.BRICK_BX), lanes7, 60)}
+    out = {}
+    for kname, (args_of, fn, plain, pairs_of, classes, streamed) in cases.items():
+        rows = {}
+        for cname, ln in classes.items():
+            args = args_of(ln)
+            if not torch.equal(fn(*args), plain(*args)):
+                fail(f"calibration, {label} {kname} at lane class {cname}: not bit-equal to the "
+                     "float32 plain version")
+            pairs = pairs_of(ln)
+            sectors, chunks = pair_units(pairs, 8), pair_units(pairs, 16)
+            rows[cname] = {"ms": cuda_ms(lambda: fn(*args, check_ranges=False), torch, inner=10),
+                           "sectors_per_obs": sectors / n, "chunks64_per_obs": chunks / n,
+                           "sector_bytes": 32 * sectors + n * streamed,
+                           "chunk64_bytes": 64 * chunks + n * streamed}
+        t = {c[0]: r["ms"] for c, r in rows.items()}
+        same = 1.10  # two classes within 10 % take the same time
+        flat_cb, flat_dc = t["c"] / t["b"] < same, t["d"] / t["c"] < same
+        model = {(True, True): "requests", (True, False): "64-byte atoms",
+                 (False, True): "sector-granular", (False, False): "mixed"}[(flat_cb, flat_dc)]
+        a = rows["a uniform"]
+        by_model = a["chunk64_bytes"] if model == "64-byte atoms" else a["sector_bytes"]
+        floor_ms = 1e3 * by_model / read_bps
+        bound_ms = 1e3 * a["sector_bytes"] / HBM_BYTES_PER_S
+        print(f"calibration, {label} {kname} n={n}: "
+              + "; ".join(f"({c}) {r['ms']:.4f} ms, {r['sectors_per_obs']:.3f} sector / "
+                          f"{r['chunks64_per_obs']:.3f} 64-byte requests per obs" for c, r in rows.items())
+              + f"; c/b {t['c'] / t['b']:.3f} (sector-granular predicts "
+              f"{rows['c l%16=7']['sector_bytes'] / rows['b l%8=0']['sector_bytes']:.3f}), d/c "
+              f"{t['d'] / t['c']:.3f} (64-byte atoms predict "
+              f"{rows['d l%16=15']['chunk64_bytes'] / rows['c l%16=7']['chunk64_bytes']:.3f}), a/b "
+              f"{t['a'] / t['b']:.3f}: the times fit {model}; at (a) bound {bound_ms:.4f} ms (32-byte "
+              f"sectors at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), floor {floor_ms:.4f} ms ("
+              f"{'64-byte chunks' if model == '64-byte atoms' else '32-byte sectors'}, "
+              f"{by_model / 1e6:.1f} MB at B5b's {read_bps / 1e12:.3f} TB/s); (a) moves "
+              f"{a['sector_bytes'] / a['ms'] / 1e9:.3f} TB/s of sectors")
+        out[kname] = {"classes": rows, "model": model, "floor_ms": floor_ms, "bound_ms": bound_ms,
+                      "read_tbps": read_bps / 1e12}
+    return out
+
+
+def row_extract_inputs(torch, seed: int):
+    """The smoke's E6 / E7 inputs: two (1,998,848, 128) N(0,1) row tensors (1 GB
+    each: every launch reads from device memory), five fraction columns, and
+    the lane classes of the calibration for E6 (lanes <= 126) and E7 (<= 94)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     n, W = E67_OBS, 128
     ra, rb = (torch.randn((n, W), generator=g, device="cuda") for _ in range(2))
@@ -733,20 +822,138 @@ def check_row_extracts(torch, gather, seed: int):
     def lanes(hi):
         return torch.randint(0, hi, (n, 1), generator=g, device="cuda", dtype=torch.int32)
 
-    def pair_sectors(ln):
-        return n + int((ln % 8 == 7).sum())
-
     lane = lanes(W - 1)
-    nbytes = 32 * 2 * pair_sectors(lane) + n * (12 + 32)
+    la, lb = lanes(W - 33), lanes(W - 33)
+    return (ra, rb, fr, lane, la, lb, lane_classes(torch, g, n, W - 2, lane),
+            lane_classes(torch, g, n, W - 34, la))
+
+
+def check_row_extracts(torch, gather, seed: int, read_bps: float):
+    """E6 and E7 at 1,998,848 observations on N(0,1) rows. An observation's
+    taps touch one sector of a row per lane pair, two when the pair straddles
+    (the first lane is the last float of a sector). Then the calibration at the
+    four lane classes, and rows of odd width 4 bytes off a 16-byte boundary."""
+    ra, rb, fr, lane, la, lb, lanes6, lanes7 = row_extract_inputs(torch, seed)
+    n = ra.shape[0]
+    nbytes = 32 * pair_units(e6_pairs(lane), 8) + n * (12 + 32)
     out = {"row_extract": check_probe_kernel(
         torch, f"E6 row_extract n={n}", gather.row_extract, gather.row_extract_plain,
         (ra, rb, lane, fr[0], fr[1]), False, nbytes, 15 * n)}
-    la, lb = lanes(W - 33), lanes(W - 33)
-    nbytes = 32 * 2 * (pair_sectors(la) + pair_sectors(lb)) + n * (28 + 32)
+    nbytes = 32 * pair_units(e7_pairs(la, lb, gather.BRICK_BX), 8) + n * (28 + 32)
     out["row_extract_packed"] = check_probe_kernel(
         torch, f"E7 row_extract_packed n={n}", gather.row_extract_packed,
         gather.row_extract_packed_plain, (ra, rb, la, lb, *fr), False, nbytes, 45 * n)
+    cal = calibrate_row_extracts(torch, gather.row_extract, gather.row_extract_packed, ra, rb, fr,
+                                 lanes6, lanes7, read_bps, "shipped")
+    out["row_extract"]["calibration"] = cal["E6"]
+    out["row_extract_packed"]["calibration"] = cal["E7"]
+    check_odd_rows(torch, gather.row_extract, gather.row_extract_packed, ra, rb, fr, lane, "shipped")
     return out
+
+
+def check_odd_rows(torch, e6, e7, ra, rb, fr, lane, label: str):
+    """E6 and E7 on rows of width 127 that start 4 bytes past a 16-byte
+    boundary (E7 with bx = 9 and with bx = 32), bit for bit against the float32
+    plain versions: a vector load whose address test is wrong faults here."""
+    from dataset_pipeline_tpu_torch.ops import gather
+
+    W, n = 127, ra.shape[0]
+    r0, r1 = (r.view(-1)[1:1 + n * W].view(n, W) for r in (ra, rb))  # no row but the first starts aligned
+    if r0.data_ptr() % 16 != 4 or not r0.is_contiguous():
+        fail("the odd rows are not a contiguous view 4 bytes off a 16-byte boundary")
+    lane = lane % (W - 1)
+    if not torch.equal(e6(r0, r1, lane, fr[0], fr[1]), gather.row_extract_plain(r0, r1, lane, fr[0], fr[1])):
+        fail(f"{label} E6 at W={W}, 4-byte offset: not bit-equal to the float32 plain version")
+    for bx in (9, 32):
+        la = lane % (W - bx - 1)
+        args = (r0, r1, la, la.flip(0), *fr)
+        if not torch.equal(e7(*args, bx=bx), gather.row_extract_packed_plain(*args, bx=bx)):
+            fail(f"{label} E7 at W={W}, bx={bx}, 4-byte offset: not bit-equal to the float32 plain version")
+    print(f"{label} E6 / E7 at W={W}, rows 4 bytes off a 16-byte boundary, n={n} "
+          "(E7 at bx = 9 and 32): bit-equal to the float32 plain versions")
+
+
+def print_tap_loads(kernels, lib: str, label: str):
+    """The global loads and stores of the row extraction kernels in the SASS
+    of ``lib`` (``cuobjdump`` beside nvcc, where the toolkit has it), and
+    whether they carry an L2 prefetch-size hint (LTC64B / LTC128B)."""
+    import re
+
+    tool = os.path.join(os.path.dirname(kernels.find_nvcc()), "cuobjdump")
+    if not os.access(tool, os.X_OK):
+        print(f"SASS of {label}: no cuobjdump beside nvcc")
+        return
+    r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300)
+    for body in re.split(r"\n\s*Function : ", r.stdout)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        if "row_extract" not in name:
+            continue
+        ops = [re.sub(r"^\s*/\*[0-9a-f]+\*/\s*", "", ln).split(";")[0].strip()
+               for ln in body.splitlines() if re.search(r"\b(LDG|STG)\b", ln)]
+        hints = sorted({h for o in ops for h in re.findall(r"LTC\d+B", o)})
+        print(f"SASS of {label} {name}: {len(ops)} global loads / stores, L2 prefetch-size hints: "
+              f"{', '.join(hints) or 'none'}")
+        for o in ops:
+            print(f"    {o}")
+
+
+def oneoff_row_extracts(torch, kernels, sources):
+    """Earlier E6 and E7 sources (entry points without the grid argument),
+    built one-off, as callables with the wrappers' signatures."""
+    import ctypes
+
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    f6, lib6 = load_oneoff(kernels, sources[0], "dpt_row_extract", [P] * 6 + [L, I, P])
+    f7, lib7 = load_oneoff(kernels, sources[1], "dpt_row_extract_packed", [P] * 10 + [L, I, I, P])
+
+    def launch(fn, rows, *args):
+        n, W = rows[0].shape
+        out = torch.empty((n, 8), dtype=torch.float32, device=rows[0].device)
+        err = fn(*(x.data_ptr() for x in rows), out.data_ptr(), n, W, *args,
+                 torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"a one-off row extraction kernel: launch error {err}")
+        return out
+
+    def e6(r0, r1, lane, fx, fy, check_ranges=True):
+        return launch(f6, (r0, r1, lane, fx, fy))
+
+    def e7(ra, rb, la, lb, fxa, fya, fxb, fyb, zf, bx=32, check_ranges=True):
+        return launch(f7, (ra, rb, la, lb, fxa, fya, fxb, fyb, zf), bx)
+
+    return e6, e7, (lib6, lib7)
+
+
+def compare_row_extracts(torch, kernels, gather, sources, seed: int, read_bps: float):
+    """Earlier E6 / E7 kernels (``sources``) against the shipped ones: bit for
+    bit at the smoke's inputs, at the four lane classes and on odd rows 4 bytes
+    off a 16-byte boundary; the earlier kernels' calibration; then both pairs
+    timed in turns (earlier, shipped, shipped, earlier) at the smoke's inputs."""
+    old6, old7, libs = oneoff_row_extracts(torch, kernels, sources)
+    for lib in libs:
+        print_tap_loads(kernels, lib, "the one-off build")
+    ra, rb, fr, lane, la, lb, lanes6, lanes7 = row_extract_inputs(torch, seed)
+    for kname, old, new, args_of, classes in (
+            ("E6", old6, gather.row_extract, lambda ln: (ra, rb, ln, fr[0], fr[1]), lanes6),
+            ("E7", old7, gather.row_extract_packed, lambda ln: (ra, rb, ln, ln.flip(0), *fr), lanes7)):
+        for cname, ln in classes.items():
+            if not torch.equal(old(*args_of(ln)), new(*args_of(ln))):
+                fail(f"{kname} at lane class {cname}: the earlier kernel's outputs differ from the shipped one's")
+    args7 = (ra, rb, la, lb, *fr)
+    if not torch.equal(old7(*args7), gather.row_extract_packed(*args7)):
+        fail("E7 at the smoke's inputs: the earlier kernel's outputs differ from the shipped one's")
+    check_odd_rows(torch, old6, old7, ra, rb, fr, lane, "earlier")
+    cal = calibrate_row_extracts(torch, old6, old7, ra, rb, fr, lanes6, lanes7, read_bps, "earlier")
+    res = {}
+    for kname, old, new, args in (("E6", old6, gather.row_extract, (ra, rb, lane, fr[0], fr[1])),
+                                  ("E7", old7, gather.row_extract_packed, args7)):
+        (o1, o2), (n1, n2) = in_turns(lambda: old(*args), lambda: new(*args, check_ranges=False), torch,
+                                      {"inner": 10}, {"inner": 10})
+        print(f"{kname} against the earlier kernel at the smoke's inputs: bit-equal there, at the four "
+              f"lane classes and on the odd rows; in turns, ten launches per event pair: earlier "
+              f"{o1:.4f} / {o2:.4f} ms, shipped {n1:.4f} / {n2:.4f} ms ({(o1 + o2) / (n1 + n2):.3f}x)")
+        res[kname] = {"earlier_ms": [o1, o2], "ms": [n1, n2], "earlier_calibration": cal[kname]}
+    return res
 
 
 def run_gather_probes(torch, kernels, gather_probe, gather_probe2):
@@ -931,25 +1138,32 @@ def check_b3(torch, tps, seed: int, flat_sampler=None):
     return out
 
 
-def load_flat_sampler(kernels, source: str):
-    """An earlier B3 that reads the flat pyramid (its entry point takes the
-    flat pyramid and its level offsets where this one takes the row-paired
-    copy), built from ``source`` into a library of its own beside the
-    kernels' build: its entry point, typed as the package's."""
+def load_oneoff(kernels, source: str, entry: str, argtypes):
+    """An earlier kernel built from ``source`` into a library of its own
+    beside the kernels' build (the card's copy of the repository has no git
+    history: put the file under the git-ignored ``build/`` first; a header it
+    includes is found beside it, then in ``csrc/``): its entry point ``entry``
+    typed with ``argtypes``, and the library's path."""
     import ctypes
+    import hashlib
 
     out_dir = os.path.join(os.path.dirname(kernels.BUILD_ROOT), "oneoff")
     os.makedirs(out_dir, exist_ok=True)
-    lib = os.path.join(out_dir, "libflat_pyramid_sample.so")
-    r = subprocess.run([kernels.find_nvcc(), *kernels.COMPILE_FLAGS, "-shared", "-o", lib,
-                        os.path.abspath(source)], capture_output=True, text=True)
+    with open(source, "rb") as f:  # by content: two sources of one name never share a library
+        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+    lib = os.path.join(out_dir, f"lib{os.path.splitext(os.path.basename(source))[0]}-{tag}.so")
+    r = subprocess.run([kernels.find_nvcc(), *kernels.COMPILE_FLAGS, f"-I{kernels.CSRC}", "-shared", "-o",
+                        lib, os.path.abspath(source)], capture_output=True, text=True)
     if r.returncode != 0:
         fail(f"the one-off build of {source} failed:\n{r.stdout}{r.stderr}")
-    fn = ctypes.CDLL(lib).dpt_pyramid_sample
-    fn.argtypes = kernels.KERNELS["pyramid_sample"].argtypes
+    fn = getattr(ctypes.CDLL(lib), entry)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     print(f"one-off build of {source}: {lib}")
-    return fn
+    for line in (r.stdout + r.stderr).splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print("  ptxas:", line.strip())
+    return fn, lib
 
 
 def flat_b3(torch, fn, flat, layout, pix, scale, derivs: bool):
@@ -1217,6 +1431,11 @@ def main(argv=None) -> int:
                          "pyramid (its dpt_pyramid_sample takes the flat pyramid's offsets), built "
                          "into a library of its own and held against this B3, bit for bit and in "
                          "turns, at the smoke's and the DSLR run's inputs")
+    ap.add_argument("--compare_row_extract_sources", nargs=2, default=None, metavar=("E6_CU", "E7_CU"),
+                    help="a one-off comparison: the sources of an earlier E6 and E7 (the entry "
+                         "points without a grid argument), built into libraries of their own and "
+                         "held against the shipped kernels bit for bit at the smoke's inputs, the "
+                         "four lane classes and odd rows, and timed in turns with them")
     args = ap.parse_args(argv)
     import torch
 
@@ -1323,7 +1542,10 @@ def main(argv=None) -> int:
 
     # photometric registration
     t0 = time.perf_counter()
-    flat_sampler = load_flat_sampler(kernels, args.compare_b3_source) if args.compare_b3_source else None
+    # an earlier B3 takes the flat pyramid and its level offsets where this one takes the row-paired copy
+    flat_sampler = (load_oneoff(kernels, args.compare_b3_source, "dpt_pyramid_sample",
+                                kernels.KERNELS["pyramid_sample"].argtypes)[0]
+                    if args.compare_b3_source else None)
     b3 = check_b3(torch, tps, seed=4, flat_sampler=flat_sampler)
     torch.cuda.empty_cache()
     print(f"B3 checks: {time.perf_counter() - t0:.1f} s")
@@ -1358,8 +1580,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     probes["tile_gather"] = check_tile_gather(torch, gather, seed=10)
     torch.cuda.empty_cache()
-    probes.update(check_row_extracts(torch, gather, seed=11))
+    read_bps = 8 * HBM_MP * 4 / (1e-3 * b5b["ms_per_further_repeat"])  # B5b's read rate in this run
+    probes.update(check_row_extracts(torch, gather, seed=11, read_bps=read_bps))
     torch.cuda.empty_cache()
+    print_tap_loads(kernels, kernels.build_info["path"], "the shipped build")
+    if args.compare_row_extract_sources:
+        earlier = compare_row_extracts(torch, kernels, gather, args.compare_row_extract_sources, 11,
+                                       read_bps)
+        probes["row_extract"]["earlier"], probes["row_extract_packed"]["earlier"] = earlier["E6"], earlier["E7"]
+        torch.cuda.empty_cache()
     print(f"E1-E7 checks: {time.perf_counter() - t0:.1f} s")
     _, probe_launches = run_gather_probes(torch, kernels, gather_probe, gather_probe2)
     torch.cuda.empty_cache()

@@ -11,14 +11,24 @@
 // product through __fmul_rn so that no FMA is formed and the bits are the
 // plain PyTorch version's.
 //
-// Bound: device memory, scattered 32-byte sectors. An observation touches
-// one or two sectors in each row (two when `lane` is the last float of a
-// sector), 12 B of lane, fx, fy and 32 B of output: ~116 B against the 1 KB
-// of the two whole rows. Design: one thread per observation, taps through
-// __ldg, the eight outputs as two 16-byte stores; 64-bit row offsets, since
-// n * W passes 2^31 at n > 16.7 M.
+// Bound: device memory, scattered reads. No two observations share a row, so
+// nothing is reused. The card serves a scattered 32-byte sector as a 64-byte
+// atom (chip_smoke.py's calibration: a lane pair costs the same in one sector
+// or in two of one 64-byte chunk, and 1.7x across a 64-byte boundary), so an
+// observation moves 2 x 1.06 atoms of 64 B, 12 B of lane, fx, fy and 32 B of
+// output: ~180 B, whose floor at the card's streaming read rate is ~0.125 ms
+// for 2 M observations; scattered atoms come at 2.1-2.3 TB/s, not 2.9. What
+// a design changes is how the card is asked for them. Design: one thread per
+// observation; each lane pair one 8-byte load where its address is 8-byte
+// aligned (row_taps.cuh: one pair in two), so 3 tap requests per observation
+// where there were 4; the eight outputs as two 16-byte stores; 64-bit row
+// offsets, since n * W passes 2^31 at n > 16.7 M. More observations per
+// thread on a grid of the resident blocks was slower here (the taps already
+// keep enough requests in flight), and so were evict-first stores.
 
 #include <cuda_runtime.h>
+
+#include "row_taps.cuh"
 
 namespace {
 
@@ -30,22 +40,16 @@ row_extract_kernel(const float* __restrict__ r0, const float* __restrict__ r1,
                    const float* __restrict__ fy, float4* __restrict__ out, long long n, int W) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const long long at = i * W + lane[i];
-  const float a0 = __ldg(r0 + at), a1 = __ldg(r0 + at + 1);
-  const float b0 = __ldg(r1 + at), b1 = __ldg(r1 + at + 1);
-  const float x = fx[i], y = fy[i];
+  const long long at = i * W + __ldg(lane + i);
+  const float x = __ldg(fx + i), y = __ldg(fy + i);
+  const float2 a = tap_pair(r0 + at), b = tap_pair(r1 + at);  // lanes l, l + 1 of rows y, y + 1
   const float gx = 1.f - x, gy = 1.f - y;
-  const float l0 = __fmul_rn(a0, gy) + __fmul_rn(b0, y);
-  const float l1 = __fmul_rn(a1, gy) + __fmul_rn(b1, y);
-  const float d0 = b0 - a0, d1 = b1 - a1;
-  float4 lo, hi;
-  lo.x = __fmul_rn(gx, l0) + __fmul_rn(x, l1);
-  lo.y = l1 - l0;
-  lo.z = __fmul_rn(gx, d0) + __fmul_rn(x, d1);
-  lo.w = 0.f;
-  hi.x = hi.y = hi.z = hi.w = 0.f;
-  out[2 * i] = lo;
-  out[2 * i + 1] = hi;
+  const float l0 = __fmul_rn(a.x, gy) + __fmul_rn(b.x, y);
+  const float l1 = __fmul_rn(a.y, gy) + __fmul_rn(b.y, y);
+  const float d0 = b.x - a.x, d1 = b.y - a.y;
+  out[2 * i] = make_float4(__fmul_rn(gx, l0) + __fmul_rn(x, l1), l1 - l0,
+                           __fmul_rn(gx, d0) + __fmul_rn(x, d1), 0.f);
+  out[2 * i + 1] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 }  // namespace

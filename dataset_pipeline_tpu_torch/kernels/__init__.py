@@ -105,8 +105,9 @@ KERNELS = {
         "dpt_row_extract", [_P, _P, _P, _P, _P, _P, _L, _I, _P],
         "row_extract.cu", f"{_PROBE}2.py:121", ("row_extract",)),
     "row_extract_packed": Kernel(  # E7, ops/gather.py:row_extract_packed
-        "dpt_row_extract_packed", [_P] * 10 + [_L, _I, _I, _P],
-        "row_extract_packed.cu", f"{_PROBE}2.py:251", ("row_extract_packed",)),
+        "dpt_row_extract_packed", [_P] * 10 + [_L, _I, _I, _I, _P],
+        "row_extract_packed.cu", f"{_PROBE}2.py:251", ("row_extract_packed",),
+        {"dpt_row_extract_packed_grid": []}),
 }
 
 # kernel launches per wrapper variant (never the plain versions): a run

@@ -321,8 +321,10 @@ def row_extract_packed(ra, rb, la, lb, fxa, fya, fxb, fyb, zf, bx: int = BRICK_B
         return row_extract_packed_plain(ra, rb, la, lb, fxa, fya, fxb, fyb, zf, bx)
     out = torch.empty((n, 8), dtype=torch.float32, device=ra.device)
     if n:
+        from dataset_pipeline_tpu_torch import kernels
+
         _launch("dpt_row_extract_packed", "row_extract_packed",
                 (ra.data_ptr(), rb.data_ptr(), la.data_ptr(), lb.data_ptr(), fxa.data_ptr(),
                  fya.data_ptr(), fxb.data_ptr(), fyb.data_ptr(), zf.data_ptr(), out.data_ptr(),
-                 n, W, bx), ra)
+                 n, W, bx, kernels.persistent_grid("dpt_row_extract_packed_grid", ra.device)), ra)
     return out

@@ -76,9 +76,11 @@ def wall_s(fn, device) -> float:
     return time.perf_counter() - t0
 
 
-def median_ms(fn, device, warmup: int = 2, reps: int = 9) -> float:
+def median_ms(fn, device, warmup: int = 2, reps: int = 9, inner: int = 1) -> float:
     """Median milliseconds of ``fn()``: CUDA events on the card, the host
-    clock on the CPU."""
+    clock on the CPU. With ``inner`` > 1 each reading brackets that many
+    back-to-back calls, one more call going ahead of it, so that on the card
+    the host's time in a wrapper hides behind the call before it."""
     for _ in range(warmup):
         fn()
     sync(device)
@@ -86,13 +88,16 @@ def median_ms(fn, device, warmup: int = 2, reps: int = 9) -> float:
     for _ in range(reps):
         if device.type == "cuda":
             a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            if inner > 1:
+                fn()
             a.record()
-            fn()
+            for _ in range(inner):
+                fn()
             b.record()
             b.synchronize()
-            times.append(a.elapsed_time(b))
+            times.append(a.elapsed_time(b) / inner)
         else:
-            times.append(1e3 * wall_s(fn, device))
+            times.append(1e3 * wall_s(lambda: [fn() for _ in range(inner)], device) / inner)
     return float(np.median(times))
 
 

@@ -16,14 +16,17 @@
 // its own: `__shfl_xor_sync` is an exchange array between two waits on it,
 // so every lane of the warp must call it, as `__syncwarp`, one wait on it. `atomicAdd` on an unsigned int and
 // `__threadfence` are the host's atomics (blocks run in order, so the last
-// block of the grid draws the last ticket); `__ldcg` and `__ldcs` are plain loads. The
-// device has 2 SMs and one resident block per SM, whatever the kernel.
+// block of the grid draws the last ticket); `__ldg`, `__ldcg` and `__ldcs` are plain
+// loads that count misaligned and vector loads. The device has 2 SMs and one resident
+// block per SM, whatever the kernel.
 // cp.async (CUDA's pipeline primitives) is emulated in
 // cuda_pipeline_primitives.h beside this file.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cmath>
+#include <cstdint>
 #include <cstring>
 #include <memory>
 #include <thread>
@@ -79,12 +82,22 @@ inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
 #define __shared__ static
 #define __restrict__ __restrict
 #define __align__(n) alignas(n)
+// The load intrinsics are plain loads that count a load not aligned to its
+// own size (a vector load that faults on the card) and the vector loads
+// (emu_counters.cpp reads both).
+inline std::atomic<long long> emu_misaligned{0}, emu_vector_loads{0};
 template <class T>
-inline T __ldg(const T* p) { return *p; }
+inline const T* emu_checked(const T* p) {
+  if (reinterpret_cast<std::uintptr_t>(p) % alignof(T) != 0) ++emu_misaligned;
+  if (sizeof(T) > 4) ++emu_vector_loads;
+  return p;
+}
 template <class T>
-inline T __ldcg(const T* p) { return *p; }
+inline T __ldg(const T* p) { return *emu_checked(p); }
 template <class T>
-inline T __ldcs(const T* p) { return *p; }
+inline T __ldcg(const T* p) { return *emu_checked(p); }
+template <class T>
+inline T __ldcs(const T* p) { return *emu_checked(p); }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;

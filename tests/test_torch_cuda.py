@@ -409,6 +409,36 @@ def test_row_extract_kernels_match_plain(cuda_device, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W,bx,offset", [(127, 9, 1), (127, 32, 1), (128, 32, 1), (127, 32, 0)])
+def test_row_extract_kernels_on_unaligned_rows(cuda_device, W, bx, offset):
+    """E6 and E7 at the probes' n = 1,998,848 on rows of odd width and rows
+    that start 4 bytes past a 16-byte boundary: the tap loads are chosen from
+    the address, and a vector load whose address test were wrong would fault
+    here (never in the host emulation). Bit-equal to the float32 plain
+    versions, two launches bit-identical, one launch per call."""
+    from dataset_pipeline_tpu_torch.ops import gather
+
+    n = 1_998_848
+    g = torch.Generator(device=cuda_device).manual_seed(W + bx + offset)
+    ra, rb = (torch.randn(n * W + 4, generator=g, device=cuda_device)[offset:offset + n * W].view(n, W)
+              for _ in range(2))
+    assert ra.is_contiguous() and ra.data_ptr() % 16 == 4 * offset
+    fr = [torch.rand((n, 1), generator=g, device=cuda_device) for _ in range(5)]
+    lane = torch.randint(0, W - 1, (n, 1), generator=g, device=cuda_device, dtype=torch.int32)
+    la, lb = (torch.randint(0, W - bx - 1, (n, 1), generator=g, device=cuda_device, dtype=torch.int32)
+              for _ in range(2))
+    for name, fn, plain, args, kw in (
+            ("row_extract", gather.row_extract, gather.row_extract_plain, (ra, rb, lane, fr[0], fr[1]), {}),
+            ("row_extract_packed", gather.row_extract_packed, gather.row_extract_packed_plain,
+             (ra, rb, la, lb, *fr), {"bx": bx})):
+        n0 = _count(name)
+        got = fn(*args, **kw)
+        assert _count(name) == n0 + 1
+        assert torch.equal(got, fn(*args, **kw)), name
+        assert torch.equal(got, plain(*args, **kw)), name
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("L", [1, 5])
 def test_brick_path_matches_flat_sampler_on_the_card(cuda_device, L):
     from dataset_pipeline_tpu_torch.ops import brick

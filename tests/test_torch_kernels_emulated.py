@@ -43,6 +43,7 @@ def emu(tmp_path_factory):
         src = _DYNAMIC_SMEM.sub(r"\1* \2 = emu_dynamic_smem<\1>();", cu.read_text())
         cpp.write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, ", src))
         srcs.append(str(cpp))
+    srcs.append(str(EMU / "emu_counters.cpp"))
     lib = out / "libemu.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{EMU}",
                            "-o", str(lib), *srcs, "-lpthread"],
@@ -50,7 +51,10 @@ def emu(tmp_path_factory):
     if proc.returncode != 0 and "barrier" in proc.stderr:
         pytest.skip("g++ lacks C++20 <barrier>")
     assert proc.returncode == 0, proc.stderr
-    return kernels.bind(ctypes.CDLL(str(lib)))  # the argument types the port itself binds
+    lib = kernels.bind(ctypes.CDLL(str(lib)))  # the argument types the port itself binds
+    for name in ("emu_misaligned_loads", "emu_vector_load_count"):
+        getattr(lib, name).restype = ctypes.c_longlong
+    return lib
 
 
 def _packed(C, sizes, chunk, seed):
@@ -486,6 +490,31 @@ def test_tile_gather_kernel_emulated(emu, n_tiles, TH, TW, cap):
     assert torch.equal(out, gather.tile_gather_plain(tiles, iy, ix, fy, fx))
 
 
+def _e6_emulated(emu, r0, r1, lane, fx, fy):
+    n, W = r0.shape
+    out = torch.full((n, 8), float("nan"))
+    assert emu.dpt_row_extract(r0.data_ptr(), r1.data_ptr(), lane.data_ptr(), fx.data_ptr(),
+                               fy.data_ptr(), out.data_ptr(), n, W, None) == 0
+    return out
+
+
+def _e7_emulated(emu, ra, rb, la, lb, fr, bx, nblocks=2):
+    n, W = ra.shape
+    out = torch.full((n, 8), float("nan"))
+    assert emu.dpt_row_extract_packed(ra.data_ptr(), rb.data_ptr(), la.data_ptr(), lb.data_ptr(),
+                                      *[f.data_ptr() for f in fr], out.data_ptr(), n, W, bx,
+                                      nblocks, None) == 0
+    return out
+
+
+def _offset_rows(rng, n, W, offset):
+    """(n, W) float32 rows whose base lies ``offset`` floats past a 16-byte
+    boundary (a contiguous view into a larger buffer, as a slice makes)."""
+    buf = _f32(rng.randn(n * W + 4))
+    assert buf.data_ptr() % 16 == 0
+    return buf[offset:offset + n * W].view(n, W)
+
+
 @pytest.mark.parametrize("n,W", [(1, 128), (255, 128), (256, 128), (700, 128), (300, 40)])
 def test_row_extract_kernels_emulated(emu, n, W):
     """E6 and E7 bit for bit against their plain versions, ragged tails
@@ -497,19 +526,96 @@ def test_row_extract_kernels_emulated(emu, n, W):
     fr = [_f32(rng.rand(n, 1)) for _ in range(5)]
     lane = _i32(rng, W - 1, (n, 1))
     lane[0, 0] = W - 2
-    out = torch.full((n, 8), float("nan"))
-    assert emu.dpt_row_extract(ra.data_ptr(), rb.data_ptr(), lane.data_ptr(), fr[0].data_ptr(),
-                               fr[1].data_ptr(), out.data_ptr(), n, W, None) == 0
+    out = _e6_emulated(emu, ra, rb, lane, fr[0], fr[1])
     assert torch.equal(out, gather.row_extract_plain(ra, rb, lane, fr[0], fr[1]))
 
     bx = 32 if W == 128 else 9
     la, lb = _i32(rng, W - bx - 1, (n, 1)), _i32(rng, W - bx - 1, (n, 1))
     la[0, 0], lb[0, 0] = W - bx - 2, 0
-    out = torch.full((n, 8), float("nan"))
-    assert emu.dpt_row_extract_packed(ra.data_ptr(), rb.data_ptr(), la.data_ptr(), lb.data_ptr(),
-                                      *[f.data_ptr() for f in fr], out.data_ptr(), n, W, bx,
-                                      None) == 0
+    out = _e7_emulated(emu, ra, rb, la, lb, fr, bx)
     assert torch.equal(out, gather.row_extract_packed_plain(ra, rb, la, lb, *fr, bx=bx))
+
+
+@pytest.mark.parametrize("residue", range(16))
+def test_row_extract_lane_classes_emulated(emu, residue):
+    """Every lane class mod 16 (whether a pair takes one 8-byte or two 4-byte
+    tap loads, and whether it straddles a sector or a 64-byte chunk), with the
+    last lane each kernel allows: bit for bit, no misaligned load, and vector
+    loads wherever the class allows them."""
+    from dataset_pipeline_tpu_torch.ops import gather
+
+    n, W, bx = 300, 128, 32
+    rng = np.random.RandomState(60 + residue)
+    ra, rb = _f32(rng.randn(n, W)), _f32(rng.randn(n, W))
+    fr = [_f32(rng.rand(n, 1)) for _ in range(5)]
+    lane = _i32(rng, (W - 2 - residue) // 16 + 1, (n, 1)) * 16 + residue
+    lane[0, 0] = W - 2
+    emu.emu_reset_load_counts()
+    out = _e6_emulated(emu, ra, rb, lane, fr[0], fr[1])
+    assert torch.equal(out, gather.row_extract_plain(ra, rb, lane, fr[0], fr[1]))
+    la = _i32(rng, (W - bx - 2 - residue) // 16 + 1, (n, 1)) * 16 + residue
+    la[0, 0] = W - bx - 2
+    lb = la.flip(0)
+    out = _e7_emulated(emu, ra, rb, la, lb, fr, bx)
+    assert torch.equal(out, gather.row_extract_packed_plain(ra, rb, la, lb, *fr, bx=bx))
+    assert emu.emu_misaligned_loads() == 0
+    # one vector load per tap pair (E6 two, E7 four per observation) in the even classes; in
+    # the odd ones (two 4-byte loads) only the pairs set to the last lanes (class 14) are
+    # vectors: E6's first observation, E7's first on level A and last on level B
+    assert emu.emu_vector_load_count() == (2 + 2 + 2 if residue % 2 else 2 * n + 4 * n)
+
+
+@pytest.mark.parametrize("W,bx,offset", [(127, 9, 1), (127, 32, 0), (128, 32, 1), (41, 9, 1),
+                                         (128, 9, 3), (40, 9, 2)])
+def test_row_extract_odd_rows_emulated(emu, W, bx, offset):
+    """Rows of odd width and rows that start 4, 8 or 12 bytes past a 16-byte
+    boundary: the tap loads are chosen from the address, so every result is
+    still the plain version's bits and no load is misaligned."""
+    from dataset_pipeline_tpu_torch.ops import gather
+
+    n = 400
+    rng = np.random.RandomState(W * 10 + bx + offset)
+    ra, rb = _offset_rows(rng, n, W, offset), _offset_rows(rng, n, W, offset)
+    assert ra.is_contiguous() and ra.data_ptr() % 16 == 4 * offset
+    fr = [_f32(rng.rand(n, 1)) for _ in range(5)]
+    lane = _i32(rng, W - 1, (n, 1))
+    lane[0, 0], lane[1, 0] = W - 2, 0
+    la, lb = _i32(rng, W - bx - 1, (n, 1)), _i32(rng, W - bx - 1, (n, 1))
+    la[0, 0], lb[0, 0], la[1, 0] = W - bx - 2, 0, 0
+    emu.emu_reset_load_counts()
+    out = _e6_emulated(emu, ra, rb, lane, fr[0], fr[1])
+    assert torch.equal(out, gather.row_extract_plain(ra, rb, lane, fr[0], fr[1]))
+    out = _e7_emulated(emu, ra, rb, la, lb, fr, bx)
+    assert torch.equal(out, gather.row_extract_packed_plain(ra, rb, la, lb, *fr, bx=bx))
+    assert emu.emu_misaligned_loads() == 0
+    assert emu.emu_vector_load_count() > n  # some taps went as vectors
+
+
+@pytest.mark.parametrize("n,nblocks", [(0, 2), (1, 2), (256, 1), (257, 2), (1024, 1), (1025, 2),
+                                       (5000, 2), (4133, 3)])
+def test_row_extract_sizes_emulated(emu, n, nblocks):
+    """Zero and one observation, one block's threads and one more, one trip of
+    an E7 block (4 observations a thread) and one more, and E7 grid-stride
+    walks on ``nblocks`` blocks whose last trip is ragged: every row written
+    once, bit for bit."""
+    from dataset_pipeline_tpu_torch.ops import gather
+
+    W, bx = 128, 32
+    rng = np.random.RandomState(n + nblocks)
+    ra, rb = _f32(rng.randn(n, W)), _f32(rng.randn(n, W))
+    fr = [_f32(rng.rand(n, 1)) for _ in range(5)]
+    lane = _i32(rng, W - 1, (n, 1))
+    out = _e6_emulated(emu, ra, rb, lane, fr[0], fr[1])
+    assert torch.equal(out, gather.row_extract_plain(ra, rb, lane, fr[0], fr[1]))
+    la, lb = _i32(rng, W - bx - 1, (n, 1)), _i32(rng, W - bx - 1, (n, 1))
+    out = _e7_emulated(emu, ra, rb, la, lb, fr, bx, nblocks)
+    assert torch.equal(out, gather.row_extract_packed_plain(ra, rb, la, lb, *fr, bx=bx))
+
+
+def test_row_extract_packed_grid_query_emulated(emu):
+    """E7 sizes its grid from the resident blocks (the emulation's 2 SMs with
+    one block each)."""
+    assert emu.dpt_row_extract_packed_grid() == 2
 
 
 def test_gather_entry_points_reject_bad_arguments(emu):
@@ -526,6 +632,7 @@ def test_gather_entry_points_reject_bad_arguments(emu):
     assert emu.dpt_row_extract(d, d, d, d, d, d, -1, 128, None) != 0
     assert emu.dpt_row_extract(d, d, d, d, d, d, 4, 1, None) != 0  # no second lane
     assert emu.dpt_row_extract(d, d, d, d, d, d, 0, 128, None) == 0  # nothing to do
-    assert emu.dpt_row_extract_packed(*[d] * 10, 4, 33, 32, None) != 0  # bx + 2 > W
-    assert emu.dpt_row_extract_packed(*[d] * 10, 4, 128, 0, None) != 0
-    assert emu.dpt_row_extract_packed(*[d] * 10, 0, 128, 32, None) == 0
+    assert emu.dpt_row_extract_packed(*[d] * 10, 4, 33, 32, 2, None) != 0  # bx + 2 > W
+    assert emu.dpt_row_extract_packed(*[d] * 10, 4, 128, 0, 2, None) != 0
+    assert emu.dpt_row_extract_packed(*[d] * 10, 4, 128, 32, 0, None) != 0  # no block
+    assert emu.dpt_row_extract_packed(*[d] * 10, 0, 128, 32, 2, None) == 0
