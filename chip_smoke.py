@@ -28,10 +28,14 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   flat pyramid is built from FILE and held bit for bit against this one at
   both input sets, the two timed in turns.
 
-- The ICP measurement path: B4a (``gn_rows``, C = 2 and C = 5, per-row
-  cloud ids), B4b (``moment_gram48``), B4c (``moment_gram_thirds``), B5a
-  (``moment_gram_repeat``, two different copies) and B5b (``hbm_read_sum``)
-  against their plain versions at 8M correspondences / 8,388,608 columns;
+- The ICP measurement path: B5b (``hbm_read_sum``), B4a (``gn_rows``, C = 2
+  and C = 5, random per-row cloud ids and ids sorted by cloud pair, the
+  floor at B5b's read rate), B4b
+  (``moment_gram48``), B4c (``moment_gram_thirds``) and B5a
+  (``moment_gram_repeat``, two different copies) against their plain
+  versions at 8M correspondences / 8,388,608 columns; with
+  ``--compare_b4a_source FILE`` (a one-off) an earlier B4a built from FILE
+  against the float64 plain version and in turns with this one;
   then ``tools.icp_bench.main(["--device", "cuda"])`` at full width (8M
   correspondences x 20 iterations, the engine A/B at 1M / 8M / 28M), whose
   JSON line is printed; then ``entry()``'s step on the card.
@@ -103,12 +107,15 @@ B1_COST_FLOPS = 85  # per correspondence and candidate: posing 66, residuals 14,
 B1_CANDIDATES = 10  # the LM ladder's tries
 # kernels already redesigned for this card: the order below does not take them again
 REDESIGNED = ("hbm_read_sum", "gn_fused", "pyramid_sample", "moment_gram", "moment_gram48",
-              "moment_gram_thirds", "moment_gram_repeat", "row_extract", "row_extract_packed")
+              "moment_gram_thirds", "moment_gram_repeat", "row_extract", "row_extract_packed", "gn_rows")
 # the operation count of a moment Gram row over the 42x42 upper triangle: 903
 # FMAs and 43 for the monomials (gn.MOMENT_FLOPS_PER_ROW, the least work, is
 # the Kronecker-factored count); printed beside it so earlier shares compare
 B2_FLOPS_TRIANGLE = 2 * 903 + 43
-B4A_FLOPS = 364  # per correspondence: 2 products x 91 FMAs (13 non-zeros per column)
+# B4a per correspondence: the least work, the 28 sums (w j1, w j2: 12; P: 21 x 2
+# FMAs; q: 6 x 2; the cost 5: 125 flops), beside the dense form's count on its
+# 13 non-zeros per column (2 products x 91 FMAs), which earlier shares used
+B4A_FLOPS, B4A_FLOPS_NONZERO = 125, 364
 B4B_CHUNK = 16384
 HBM_MP = 8_388_608
 ENGINE_POSE_TOL = 1e-5  # moment / device-LM engines vs the direct engine, q and t
@@ -345,9 +352,10 @@ def check_b2(torch, gn, pack_group_data, compute_group_moments_from_packed, seed
 # ---------------------------------------------------------------------------
 
 
-def check_b4a(torch, gn, C: int, seed: int):
-    """B4a against its plain version (float32 and float64) at 8M rows with
-    random per-row cloud ids and weights in {0, 1} mixed with random ones."""
+def b4a_inputs(torch, C: int, seed: int):
+    """B4a's rows at 8M and two id layouts: "random" per-row ids (equal 1 time
+    in C) and "sorted", the engine's groups of one ordered cloud pair each (at
+    C = 2 the ICP bench's (0, 1), (1, 0)); weights in {0, 1} mixed with random ones."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     M = CORR_TOTAL
     j1, j2 = (torch.randn((6, M), generator=g, device="cuda") for _ in range(2))
@@ -358,30 +366,110 @@ def check_b4a(torch, gn, C: int, seed: int):
     u = torch.rand((3, M), generator=g, device="cuda")
     w = torch.where(u[0] < 0.5, (u[1] > 0.2).float(), u[2])
     del u
-    args = (j1, j2, r1, r2, sid, tid, w)
-    k = [x.cpu().numpy() for x in gn.gn_rows(*args, C)]
-    k2 = [x.cpu().numpy() for x in gn.gn_rows(*args, C)]
-    if any(not np.array_equal(a, b) for a, b in zip(k, k2)):
-        fail(f"B4a C={C}: two identical launches disagree (not deterministic)")
-    p32 = [x.cpu().numpy() for x in gn.gn_rows_plain(*args, C)]
-    p64 = [x.cpu().numpy() for x in gn.gn_rows_plain(
-        *[a.double() if a.is_floating_point() else a for a in args], C)]
-    rel = {name: float(np.max(np.abs(k[i] - p64[i])) / max(np.max(np.abs(p64[i])), 1e-30))
+    pairs = torch.tensor([(s, t) for s in range(C) for t in range(C) if s != t], dtype=torch.int32,
+                         device="cuda")
+    group = torch.arange(M, device="cuda") * len(pairs) // M
+    layouts = {"random": (sid, tid),
+               "sorted": (pairs[group, 0].contiguous(), pairs[group, 1].contiguous())}
+    return (j1, j2, r1, r2, w), layouts
+
+
+def b4a_errors(got, p64, label: str):
+    """Relative error of B4a's (H, b, cost) against the float64 plain version;
+    fails above B1_TOL or on an H that is not exactly symmetric."""
+    rel = {name: float(np.max(np.abs(got[i] - p64[i])) / max(np.max(np.abs(p64[i])), 1e-30))
            for i, name in enumerate(("H", "b", "cost"))}
-    max_abs = float(max(np.max(np.abs(k[i] - p32[i])) for i in range(3)))
-    if not all(np.isfinite(x).all() for x in k) or max(rel.values()) > B1_TOL:
-        fail(f"B4a C={C}: kernel vs float64 plain {rel} > {B1_TOL}")
-    times = kernel_ms(lambda: gn.gn_rows(*args, C), torch)
-    plain_ms = cuda_ms(lambda: gn.gn_rows_plain(*args, C), torch, warmup=1, reps=5)
+    if not all(np.isfinite(x).all() for x in got) or max(rel.values()) > B1_TOL:
+        fail(f"B4a {label}: kernel vs float64 plain {rel} > {B1_TOL}")
+    if not np.array_equal(got[0], got[0].T):
+        fail(f"B4a {label}: H is not exactly symmetric")
+    return rel
+
+
+def check_b4a(torch, gn, C: int, seed: int, read_bps: float):
+    """B4a against its plain version (float64 and float32) at 8M rows on both
+    id layouts: bit-equal over two launches, an exactly symmetric H, within
+    B1_TOL of the float64 plain version; timed on each layout (ten launches
+    per event pair). The bound is the bytes' (68 B a row); the floor, the
+    bytes at this run's B5b read rate."""
+    rows, layouts = b4a_inputs(torch, C, seed)
+    M = CORR_TOTAL
     S = 6 * C + 1
-    # a column of A1 / A2 has 13 non-zeros (two 6-row blocks and the residual)
-    # whatever C is: 2 x 91 FMAs per row fill the upper triangle of both products
     b = bound(68 * M + 8 * S * S, B4A_FLOPS * M)
-    print(f"B4a gn_rows C={C} M={M} (per-row ids): kernel vs f64 plain rel H {rel['H']:.3e} "
-          f"b {rel['b']:.3e} cost {rel['cost']:.3e}; max|kernel - f32 plain| {max_abs:.3e}; "
-          f"kernel {times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for one launch between "
-          f"its events), f32 plain {plain_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
-    return {"max_abs_err": max_abs, **times, "plain_ms": plain_ms, **b, "library_ms": None}
+    ops_ms = {n: 1e3 * f * M / FP32_FLOPS for n, f in (("least", B4A_FLOPS), ("dense", B4A_FLOPS_NONZERO))}
+    floor_ms = 1e3 * (68 * M + 8 * S * S) / read_bps
+    out = {**b, "floor_ms": floor_ms, "library_ms": None}
+    for name, (sid, tid) in layouts.items():
+        args = (*rows[:4], sid, tid, rows[4])
+        k = [x.cpu().numpy() for x in gn.gn_rows(*args, C)]
+        k2 = [x.cpu().numpy() for x in gn.gn_rows(*args, C)]
+        if any(not np.array_equal(a, c) for a, c in zip(k, k2)):
+            fail(f"B4a C={C} {name} ids: two identical launches disagree (not deterministic)")
+        p64 = [x.cpu().numpy() for x in gn.gn_rows_plain(
+            *[a.double() if a.is_floating_point() else a for a in args], C)]
+        rel = b4a_errors(k, p64, f"C={C} {name} ids")
+        times = kernel_ms(lambda: gn.gn_rows(*args, C), torch)
+        if name == "random":
+            p32 = [x.cpu().numpy() for x in gn.gn_rows_plain(*args, C)]
+            out["max_abs_err"] = float(max(np.max(np.abs(k[i] - p32[i])) for i in range(3)))
+            out["plain_ms"] = cuda_ms(lambda: gn.gn_rows_plain(*args, C), torch, warmup=1, reps=5)
+            out.update(times)
+        out[name] = {**times, "rel": rel}
+        print(f"B4a gn_rows C={C} M={M} ({name} ids): kernel vs f64 plain rel H {rel['H']:.3e} b "
+              f"{rel['b']:.3e} cost {rel['cost']:.3e}, bit-equal over two launches, H exactly symmetric; "
+              f"kernel {times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for one launch between its "
+              f"events); bound {b['bound_ms']:.4f} ms ({b['bound_by']}, 68 B/row; operations "
+              f"{ops_ms['least']:.4f} ms on {B4A_FLOPS} flop/row, {ops_ms['dense']:.4f} on the dense "
+              f"form's {B4A_FLOPS_NONZERO}): {b['bound_ms'] / times['ms']:.1%} on either count; floor at "
+              f"this run's B5b read rate {floor_ms:.4f} ms: {floor_ms / times['ms']:.1%}"
+              + (f"; f32 plain {out['plain_ms']:.4f} ms" if name == "random" else ""))
+    return out
+
+
+def compare_b4a(torch, gn, kernels, source: str):
+    """An earlier B4a (``source``, the entry point of dense operands in
+    4096-column blocks) against the shipped one at C = 2 and C = 5 on both id
+    layouts: each within B1_TOL of the float64 plain version, the two timed in
+    turns (earlier, shipped, shipped, earlier), ten launches per event pair."""
+    import ctypes
+
+    P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fn, _ = load_oneoff(kernels, source, "dpt_gn_rows", [P] * 7 + [L, I, I, I, P, I, P, P])
+
+    def earlier(j1, j2, r1, r2, sid, tid, w, C):
+        M, S = j1.shape[1], 6 * C + 1
+        nt = (S + 3) // 4
+        tile_cols = min(256, (12032 // (8 * nt) - 1) // 32 * 32)  # its staging: 12032 floats
+        nblocks = -(-M // 4096)
+        partials = torch.empty((nblocks, nt * (nt + 1) // 2 * 16), dtype=torch.float32, device="cuda")
+        G = torch.empty((S, S), dtype=torch.float64, device="cuda")
+        err = fn(*(x.data_ptr() for x in (j1, j2, r1, r2, sid, tid, w)), M, C, 4096, tile_cols,
+                 partials.data_ptr(), nblocks, G.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            fail(f"the earlier B4a: launch error {err}")
+        n = 6 * C
+        return G[:n, :n], G[:n, n], G[n, n]
+
+    res = {}
+    for C, seed in ((2, 5), (5, 6)):
+        rows, layouts = b4a_inputs(torch, C, seed)
+        for name, (sid, tid) in layouts.items():
+            args = (*rows[:4], sid, tid, rows[4])
+            p64 = [x.cpu().numpy() for x in gn.gn_rows_plain(
+                *[a.double() if a.is_floating_point() else a for a in args], C)]
+            rel = b4a_errors([x.cpu().numpy() for x in earlier(*args, C)], p64,
+                             f"(the earlier kernel) C={C} {name} ids")
+            b4a_errors([x.cpu().numpy() for x in gn.gn_rows(*args, C)], p64, f"C={C} {name} ids")
+            (o1, o2), (n1, n2) = in_turns(lambda: earlier(*args, C), lambda: gn.gn_rows(*args, C), torch,
+                                          {"inner": 10}, {"inner": 10})
+            print(f"B4a against the earlier kernel, C={C} {name} ids: both within {B1_TOL} of the f64 "
+                  f"plain (earlier {max(rel.values()):.3e}); in turns, ten launches per event pair: "
+                  f"earlier {o1:.4f} / {o2:.4f} ms, shipped {n1:.4f} / {n2:.4f} ms "
+                  f"({(o1 + o2) / (n1 + n2):.3f}x)")
+            res[f"C{C}_{name}"] = {"earlier_ms": [o1, o2], "ms": [n1, n2]}
+        del rows, layouts
+        torch.cuda.empty_cache()
+    return res
 
 
 def gram_bound(gn, nbytes: float, rows: int) -> dict:
@@ -1436,6 +1524,11 @@ def main(argv=None) -> int:
                          "points without a grid argument), built into libraries of their own and "
                          "held against the shipped kernels bit for bit at the smoke's inputs, the "
                          "four lane classes and odd rows, and timed in turns with them")
+    ap.add_argument("--compare_b4a_source", default=None, metavar="CU",
+                    help="a one-off comparison: the source of an earlier B4a (the entry point of "
+                         "dense operands in 4096-column blocks), built into a library of its own, "
+                         "held against the float64 plain version and timed in turns with the "
+                         "shipped kernel at C = 2 and C = 5 on both id layouts")
     args = ap.parse_args(argv)
     import torch
 
@@ -1563,12 +1656,16 @@ def main(argv=None) -> int:
 
     # the ICP measurement path
     t0 = time.perf_counter()
-    b4a = check_b4a(torch, gn, C=2, seed=5)
-    check_b4a(torch, gn, C=5, seed=6)
-    torch.cuda.empty_cache()
-    variants = check_moment_variants(torch, gn, pack_group_data, seed=7)
-    torch.cuda.empty_cache()
     b5b = check_b5b(torch, hbm, seed=8)
+    torch.cuda.empty_cache()
+    read_bps = 8 * HBM_MP * 4 / (1e-3 * b5b["ms_per_further_repeat"])  # B5b's read rate in this run
+    b4a = check_b4a(torch, gn, C=2, seed=5, read_bps=read_bps)
+    torch.cuda.empty_cache()
+    b4a["C5"] = check_b4a(torch, gn, C=5, seed=6, read_bps=read_bps)
+    torch.cuda.empty_cache()
+    if args.compare_b4a_source:
+        b4a["earlier"] = compare_b4a(torch, gn, kernels, args.compare_b4a_source)
+    variants = check_moment_variants(torch, gn, pack_group_data, seed=7)
     torch.cuda.empty_cache()
     print(f"B4a, B4b, B4c, B5a, B5b checks: {time.perf_counter() - t0:.1f} s")
     _, bench = run_icp_bench(torch, kernels, icp_bench, entry)
@@ -1580,7 +1677,6 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     probes["tile_gather"] = check_tile_gather(torch, gather, seed=10)
     torch.cuda.empty_cache()
-    read_bps = 8 * HBM_MP * 4 / (1e-3 * b5b["ms_per_further_repeat"])  # B5b's read rate in this run
     probes.update(check_row_extracts(torch, gather, seed=11, read_bps=read_bps))
     torch.cuda.empty_cache()
     print_tap_loads(kernels, kernels.build_info["path"], "the shipped build")

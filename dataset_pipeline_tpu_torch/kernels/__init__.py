@@ -71,8 +71,8 @@ KERNELS = {
         ("pyramid_sample_derivs", "pyramid_sample_value", "pyramid_pairs"),
         {"dpt_pyramid_pairs": [_P, _L, _P, _L, _I, _P, _P, _P, _P, _I, _P]}),
     "gn_rows": Kernel(  # B4a, ops/gn.py:gn_rows
-        "dpt_gn_rows", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P, _I, _P, _P],
-        "gn_rows.cu", f"{_JAX}:34", ("gn_rows",)),
+        "dpt_gn_rows", [_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P, _P, _P, _P],
+        "gn_rows.cu", f"{_JAX}:34", ("gn_rows",), {"dpt_gn_rows_grid": [_I]}),
     "moment_gram48": Kernel(  # B4b, ops/gn.py:moment_gram48
         "dpt_moment_gram48", [_P, _I, _I, _I, _P, _I, _P],
         "moment_gram48.cu", f"{_JAX}:270", ("moment_gram48",)),
@@ -242,17 +242,17 @@ def scratch(name: str, device, stream: int, floats: int, ints: int):
     return held
 
 
-def persistent_grid(query: str, device) -> int:
+def persistent_grid(query: str, device, *args) -> int:
     """Blocks of a persistent launch on ``device``: what the entry point
-    ``query`` reports (SM count x resident blocks per SM), asked once per
-    device and kernel."""
+    ``query`` reports for ``args`` (SM count x resident blocks per SM), asked
+    once per device, kernel and arguments."""
     import torch
 
     index = torch.device(device).index
-    key = (query, torch.cuda.current_device() if index is None else index)
+    key = (query, torch.cuda.current_device() if index is None else index, *args)
     if key not in _grids:
         with torch.cuda.device(key[1]):
-            n = getattr(library(), query)()
+            n = getattr(library(), query)(*args)
         if n <= 0:
             check(-n if n < 0 else 1, query)
         _grids[key] = n

@@ -49,9 +49,8 @@ _MOMENT_TILE = 256  # rows staged per pass by the B2 kernel
 _MOMENT_MIN_ROWS = 4096  # rows per block of the B2 kernel, at least (where the chunk allows):
 # a block's fixed costs (its first copies' latency, its reduction) stay small against its loop
 _MOMENT_MAX_ROWS = 16384  # ... and at most
-_ROWS_COLS_PER_BLOCK = 4096  # columns per block of the B4a kernel
-_ROWS_SMEM_FLOATS = 12032  # staging floats of the B4a kernel (csrc/gn_rows.cu)
-_ROWS_MAX_CLOUDS = 14  # its 4x4 output tiles must not outnumber its 256 threads
+_ROWS_SUMS = 28  # sums a B4a record holds per cloud-pair class (csrc/gn_rows.cu)
+_ROWS_MAX_CLOUDS = 21  # its warps' class tables fit a block's 227 KB of shared memory up to here
 _ROWS_PLAIN_CHUNK = 65536  # columns per product of the B4a plain version
 
 
@@ -456,8 +455,11 @@ def gn_rows_prep(q, t, ps, ns, pt, nt, sid, tid):
     """The elementwise pass before the B4a kernel (plain PyTorch on both
     sides, as it is XLA in the JAX package): global-frame Jacobian vectors
     ``j1 = [n_s; p_t x n_s]``, ``j2 = [n_t; p_s x n_t]`` as ``(6, M)`` and
-    residuals ``r1, r2 (M,)`` of ``(M, 3)`` correspondences."""
-    sid, tid = sid.long(), tid.long()
+    residuals ``r1, r2 (M,)`` of ``(M, 3)`` correspondences. An id outside
+    ``[0, C)`` takes the pose that JAX's gather gives it: a negative id counts
+    from the end, then the id is clamped into range."""
+    C = q.shape[0]
+    sid, tid = (torch.where(i < 0, i + C, i).clamp(0, C - 1) for i in (sid.long(), tid.long()))
     gps = quat_rotate(q[sid], ps) + t[sid]
     gns = quat_rotate(q[sid], ns)
     gpt = quat_rotate(q[tid], pt) + t[tid]
@@ -491,8 +493,11 @@ def gn_rows_plain(j1, j2, r1, r2, sid, tid, w, num_clouds: int):
 def gn_rows(j1, j2, r1, r2, sid, tid, w, num_clouds: int):
     """H (6C,6C), b (6C,), cost (float64 tensors) from precomputed rows:
     ``j1, j2 (6, M)`` and ``r1, r2, w (M,)`` float32, ``sid, tid (M,)`` int32
-    cloud ids that may change from row to row. A row whose ids are equal or
-    out of range adds to the cost only, as in the JAX kernel."""
+    cloud ids that may change from row to row; ``w >= 0`` (the JAX kernel
+    takes its square root). As in the JAX kernel's one-hot rule an id outside
+    ``[0, C)`` matches no cloud: a row whose two ids are equal, or both
+    outside, adds to the cost only; a row with one id outside adds to H and b
+    at the other id's block."""
     M = j1.shape[1] if j1.dim() == 2 else -1
     C = num_clouds
     for name, x, shape, dtype in (("j1", j1, (6, M), torch.float32), ("j2", j2, (6, M), torch.float32),
@@ -511,25 +516,22 @@ def gn_rows(j1, j2, r1, r2, sid, tid, w, num_clouds: int):
     if j1.device.type != "cuda":
         raise ValueError(f"unsupported device {j1.device}")
     if C > _ROWS_MAX_CLOUDS:
-        raise ValueError(f"num_clouds={C} > {_ROWS_MAX_CLOUDS}: the kernel's output tiles "
-                         "would outnumber its threads")
+        raise ValueError(f"num_clouds={C} > {_ROWS_MAX_CLOUDS}: the kernel's per-warp class "
+                         "tables would exceed a block's shared memory")
 
     from dataset_pipeline_tpu_torch import kernels
 
     lib = kernels.library()
+    stream = torch.cuda.current_stream(j1.device).cuda_stream
+    nblocks = kernels.persistent_grid("dpt_gn_rows_grid", j1.device, C)
+    sums = C * (C + 1) // 2 * _ROWS_SUMS  # per block: a record per class
+    scratch, _, ticket = kernels.scratch("gn_rows", j1.device, stream, (nblocks + 2) * sums, 1)
     S = 6 * C + 1
-    nt = (S + 3) // 4
-    # the widest staged tile (a multiple of 32 columns) whose two operands fit
-    tile_cols = min(256, (_ROWS_SMEM_FLOATS // (8 * nt) - 1) // 32 * 32)
-    nblocks = -(-M // _ROWS_COLS_PER_BLOCK)
-    partials = torch.empty((nblocks, nt * (nt + 1) // 2 * 16), dtype=torch.float32,
-                           device=j1.device)
     out = torch.empty((S, S), dtype=torch.float64, device=j1.device)
     err = lib.dpt_gn_rows(
         j1.data_ptr(), j2.data_ptr(), r1.data_ptr(), r2.data_ptr(), sid.data_ptr(),
-        tid.data_ptr(), w.data_ptr(), M, C, _ROWS_COLS_PER_BLOCK, tile_cols,
-        partials.data_ptr(), nblocks, out.data_ptr(),
-        torch.cuda.current_stream(j1.device).cuda_stream)
+        tid.data_ptr(), w.data_ptr(), M, C, nblocks,
+        scratch.data_ptr(), ticket.data_ptr(), out.data_ptr(), stream)
     kernels.check(err, "dpt_gn_rows")
     LAUNCHES["gn_rows"] += 1
     n = 6 * C

@@ -10,11 +10,15 @@
 // block, smem, args)`; a kernel may be a template instantiation. Dynamic
 // shared memory (`extern __shared__ T name[];`, which the test rewrites into
 // `T* name = emu_dynamic_smem<T>();`) is one buffer of `smem` bytes per block,
-// filled with NaN bytes so that a read of a slot no thread wrote shows;
-// `cudaFuncSetAttribute` accepts any request. `float2` and `float4` are plain
+// filled with NaN bytes so that a read of a slot no thread wrote shows; as on
+// the card, a launch with more than 48 KB of it fails (cudaGetLastError) unless
+// `cudaFuncSetAttribute` raised that kernel's limit, and above 227 KB always.
+// `float2` and `float4` are plain
 // structs of two and four floats. A warp is 32 consecutive threads with a barrier of
-// its own: `__shfl_xor_sync` is an exchange array between two waits on it,
-// so every lane of the warp must call it, as `__syncwarp`, one wait on it. `atomicAdd` on an unsigned int and
+// its own: `__shfl_xor_sync`, `__shfl_sync`, `__ballot_sync` and
+// `__match_any_sync` are an exchange array between two waits on it, so every
+// lane of the warp must call them (the mask is not read), as `__syncwarp`,
+// one wait on it. `atomicAdd` on an unsigned int and
 // `__threadfence` are the host's atomics (blocks run in order, so the last
 // block of the grid draws the last ticket); `__ldg`, `__ldcg` and `__ldcs` are plain
 // loads that count misaligned and vector loads. The device has 2 SMs and one resident
@@ -28,8 +32,10 @@
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <memory>
 #include <thread>
+#include <utility>
 #include <vector>
 
 using std::isfinite;
@@ -58,18 +64,54 @@ inline std::barrier<>* emu_barrier = nullptr;
 inline void __syncthreads() { emu_barrier->arrive_and_wait(); }
 inline std::vector<std::unique_ptr<std::barrier<>>> emu_warp_barriers;
 inline std::vector<unsigned long long> emu_exchange;  // one slot per thread of the block
-template <class T>
-inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
-  static_assert(sizeof(T) <= sizeof(unsigned long long), "shuffles move at most 8 bytes");
-  const unsigned t = threadIdx.x;
+// Every lane of the calling warp posts v; f(first, lanes) then reads the
+// warp's posts (emu_exchange[first + l], l < lanes) before the second wait.
+template <class T, class F>
+inline auto emu_warp_exchange(T v, F f) {
+  static_assert(sizeof(T) <= sizeof(unsigned long long), "warp exchanges move at most 8 bytes");
+  const unsigned t = threadIdx.x, first = t & ~31u;
   std::barrier<>& bar = *emu_warp_barriers[t / 32];
   std::memcpy(&emu_exchange[t], &v, sizeof(T));
   bar.arrive_and_wait();
-  T r;
-  std::memcpy(&r, &emu_exchange[t ^ (unsigned)lane_mask], sizeof(T));
+  const auto r = f(first, std::min(32u, blockDim.x - first));
   bar.arrive_and_wait();
   return r;
 }
+template <class T>
+inline T emu_posted(unsigned thread) {
+  T r;
+  std::memcpy(&r, &emu_exchange[thread], sizeof(T));
+  return r;
+}
+template <class T>
+inline T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return emu_warp_exchange(v, [&](unsigned, unsigned) {
+    return emu_posted<T>(threadIdx.x ^ (unsigned)lane_mask);
+  });
+}
+template <class T>
+inline T __shfl_sync(unsigned, T v, int src_lane) {
+  return emu_warp_exchange(v, [&](unsigned first, unsigned) {
+    return emu_posted<T>(first + ((unsigned)src_lane & 31u));
+  });
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return emu_warp_exchange(pred != 0, [](unsigned first, unsigned lanes) {
+    unsigned m = 0;
+    for (unsigned l = 0; l < lanes; ++l) m |= (unsigned)emu_posted<bool>(first + l) << l;
+    return m;
+  });
+}
+template <class T>
+inline unsigned __match_any_sync(unsigned, T v) {
+  return emu_warp_exchange(v, [&](unsigned first, unsigned lanes) {
+    unsigned m = 0;
+    for (unsigned l = 0; l < lanes; ++l) m |= (unsigned)(emu_posted<T>(first + l) == v) << l;
+    return m;
+  });
+}
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_barriers[threadIdx.x / 32]->arrive_and_wait(); }
 inline unsigned atomicAdd(unsigned* p, unsigned v) { return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST); }
 inline void __threadfence() { __atomic_thread_fence(__ATOMIC_SEQ_CST); }
@@ -102,7 +144,8 @@ inline T __ldcs(const T* p) { return *emu_checked(p); }
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t emu_launch_error = cudaSuccess;  // the last refused launch's, until read
+inline cudaError_t cudaGetLastError() { return std::exchange(emu_launch_error, cudaSuccess); }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 inline cudaError_t cudaGetDevice(int* dev) { return *dev = 0, cudaSuccess; }
@@ -114,14 +157,25 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, F,
   return *blocks = 1, cudaSuccess;
 }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+constexpr size_t emu_default_smem = 48 * 1024, emu_max_smem = 232448;  // the H100's per block
+inline std::map<const void*, size_t> emu_smem_limits;  // kernel -> dynamic shared memory allowed
 template <class F>
-inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
+inline cudaError_t cudaFuncSetAttribute(F kernel, cudaFuncAttribute, int bytes) {
+  if (bytes < 0 || (size_t)bytes > emu_max_smem) return cudaErrorInvalidValue;
+  emu_smem_limits[reinterpret_cast<const void*>(kernel)] = (size_t)bytes;
+  return cudaSuccess;
+}
 inline std::vector<float4> emu_dynamic;  // the running block's dynamic shared memory
 template <class T>
 inline T* emu_dynamic_smem() { return reinterpret_cast<T*>(emu_dynamic.data()); }
 
 template <class F, class... A>
 void emu_launch(F kernel, dim3 grid, int block, size_t smem, A... args) {
+  const auto limit = emu_smem_limits.find(reinterpret_cast<const void*>(kernel));
+  if (smem > (limit == emu_smem_limits.end() ? emu_default_smem : limit->second)) {
+    emu_launch_error = cudaErrorInvalidValue;  // the card refuses it, and nothing runs
+    return;
+  }
   gridDim = grid;
   blockDim = dim3(block);
   for (unsigned by = 0; by < grid.y; ++by)

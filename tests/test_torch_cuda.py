@@ -225,16 +225,32 @@ def _packed_cuda(device, chunk, sizes, seed, rows=13):
     return tm.pack_group_data(groups, chunk=chunk, rows=rows, device=device)[0]
 
 
+def _rows_ids(rng, C, M, ids):
+    """Per-row cloud ids: "random" in range; "sorted" in groups of one ordered
+    pair (the engine's layout; at C = 2 the ICP bench's (0, 1), (1, 0));
+    "unknown" drawn from [-2, C + 2), so that rows have both, one or no id
+    outside [0, C)."""
+    if ids == "random":
+        sid = rng.randint(0, C, M)
+        return sid, (sid + rng.randint(0, C, M)) % C
+    if ids == "unknown":
+        return rng.randint(-2, C + 2, M), rng.randint(-2, C + 2, M)
+    pairs = [(s, t) for s in range(C) for t in range(C) if s != t]
+    sizes = np.diff(np.linspace(0, M, len(pairs) + 1).astype(int))
+    return tuple(np.repeat(np.asarray(col), sizes) for col in zip(*pairs))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("C,M", [(1, 900), (2, 100_000), (3, 4096), (5, 70_001), (14, 9000)])
-def test_gn_rows_kernel_matches_plain(cuda_device, C, M):
+@pytest.mark.parametrize("C,M,ids", [(1, 900, "random"), (2, 100_000, "random"), (3, 4096, "random"),
+                                     (5, 70_001, "random"), (14, 9000, "random"), (21, 20_000, "random"),
+                                     (2, 100_000, "sorted"), (5, 70_001, "sorted"),
+                                     (2, 50_001, "unknown"), (5, 50_001, "unknown")])
+def test_gn_rows_kernel_matches_plain(cuda_device, C, M, ids):
     rng = np.random.RandomState(80 + C)
     j1, j2 = (torch.from_numpy(rng.randn(6, M).astype(np.float32)).to(cuda_device) for _ in range(2))
     r1, r2 = (torch.from_numpy((0.1 * rng.randn(M)).astype(np.float32)).to(cuda_device)
               for _ in range(2))
-    sid = rng.randint(0, C, M).astype(np.int32)
-    tid = torch.from_numpy(((sid + rng.randint(0, C, M)) % C).astype(np.int32)).to(cuda_device)
-    sid = torch.from_numpy(sid).to(cuda_device)
+    sid, tid = (torch.from_numpy(x.astype(np.int32)).to(cuda_device) for x in _rows_ids(rng, C, M, ids))
     w = torch.from_numpy(np.where(rng.rand(M) < 0.5, rng.rand(M) > 0.2, rng.rand(M))
                          .astype(np.float32)).to(cuda_device)
     n0 = gn.LAUNCHES["gn_rows"]
@@ -243,11 +259,12 @@ def test_gn_rows_kernel_matches_plain(cuda_device, C, M):
     again = [x.cpu().numpy() for x in gn.gn_rows(j1, j2, r1, r2, sid, tid, w, C)]
     ref = [x.cpu().numpy() for x in gn.gn_rows_plain(j1.double(), j2.double(), r1.double(),
                                                      r2.double(), sid, tid, w.double(), C)]
+    np.testing.assert_array_equal(got[0], got[0].T)
     for g, a, r in zip(got, again, ref):
         np.testing.assert_array_equal(g, a)
         np.testing.assert_allclose(g, r, rtol=0, atol=1e-5 * max(np.abs(r).max(), 1e-30))
     with pytest.raises(ValueError, match="num_clouds"):
-        gn.gn_rows(j1, j2, r1, r2, sid, tid, w, 15)
+        gn.gn_rows(j1, j2, r1, r2, sid, tid, w, 22)
 
 
 @pytest.mark.cuda

@@ -75,6 +75,28 @@ def test_b4a_plain_matches_pallas_interpret(case):
     np.testing.assert_allclose(float(c), float(cj), rtol=1e-5)
 
 
+@pytest.mark.parametrize("case", ["binary_w", "random_w"])
+def test_b4a_one_unknown_id_matches_pallas_interpret(case):
+    """Rows with exactly one id outside [0, C) (sid = 7, tid = 0 and sid = 0,
+    tid = -1) add to H and b at the other id's block in the JAX kernel as
+    here; the prep poses an unknown id as JAX's gather does."""
+    args, C, chunk = _rows_problem(case)
+    sid, tid = args[6].copy(), args[7].copy()
+    sid[::5], tid[::5] = 7, 0
+    sid[1::5], tid[1::5] = 0, -1
+    args = (*args[:6], sid, tid, args[8])
+    Hj, bj, cj = jp.icp_hb_cost_pallas(*[jnp.asarray(a) for a in args], num_clouds=C,
+                                       chunk=chunk, interpret=True)
+    H, b, c = gn.icp_hb_cost_rows(*[torch.from_numpy(a) for a in args], C)
+    np.testing.assert_allclose(H.numpy(), np.asarray(Hj), rtol=1e-4, atol=1e-2)
+    np.testing.assert_allclose(b.numpy(), np.asarray(bj), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(float(c), float(cj), rtol=1e-5)
+    bs, bt = sid.copy(), tid.copy()  # the same rows with both ids unknown add to the cost only
+    bs[::5], bt[::5], bs[1::5], bt[1::5] = 7, 7, -1, -1
+    H0 = gn.icp_hb_cost_rows(*[torch.from_numpy(a) for a in (*args[:6], bs, bt, args[8])], C)[0]
+    assert not np.allclose(H.numpy(), H0.numpy(), rtol=1e-3, atol=1e-2)
+
+
 def test_b4a_rows_with_equal_or_unknown_ids_add_to_the_cost_only():
     """As the JAX kernel's one-hot difference: ``sid == tid`` cancels, an id
     outside [0, C) matches no block (a padding row is ``sid=0, tid=1, w=0``)."""

@@ -43,7 +43,7 @@ def emu(tmp_path_factory):
         src = _DYNAMIC_SMEM.sub(r"\1* \2 = emu_dynamic_smem<\1>();", cu.read_text())
         cpp.write_text(_LAUNCH.sub(r"emu_launch(\1, \2, \3, \4, ", src))
         srcs.append(str(cpp))
-    srcs.append(str(EMU / "emu_counters.cpp"))
+    srcs += [str(EMU / "emu_counters.cpp"), str(EMU / "emu_selftest.cpp")]
     lib = out / "libemu.so"
     proc = subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", f"-I{EMU}",
                            "-o", str(lib), *srcs, "-lpthread"],
@@ -163,6 +163,8 @@ def test_persistent_grid_queries_emulated(emu):
     assert emu.dpt_gn_grid() == 2
     assert emu.dpt_hbm_read_sum_grid() == 8
     assert emu.dpt_moment_gram_grid() == 2
+    assert emu.dpt_gn_rows_grid(5) == 2 and emu.dpt_gn_rows_grid(21) == 2
+    assert emu.dpt_gn_rows_grid(22) < 0 and emu.dpt_gn_rows_grid(0) < 0
 
 
 @pytest.mark.parametrize("rows_per_block,chunk", [(256, 1024), (512, 1024), (2048, 2048)])
@@ -301,38 +303,124 @@ def test_pyramid_sample_entry_point_rejects_bad_arguments(emu):
 # ---------------------------------------------------------------------------
 
 
-def _rows_inputs(C, M, seed):
-    """Precomputed rows with per-row cloud ids: ids that change from row to
-    row, some rows with equal ids, weights of 0, 1 and in between."""
+def _rows_inputs(C, M, seed, ids="random"):
+    """Precomputed rows with per-row cloud ids, weights of 0, 1 and in
+    between. ``ids``: "random" (in range, equal 1 time in C), "unknown" (drawn
+    from [-2, C + 2): rows with both, one (negative and >= C) or no id
+    outside [0, C), and equal ids), or "sorted" (the engine's layout: groups of
+    one ordered pair each, of uneven sizes, so that runs of one class end
+    inside units and blocks)."""
     rng = np.random.RandomState(seed)
     j1, j2 = (torch.from_numpy(rng.randn(6, M).astype(np.float32)) for _ in range(2))
     r1, r2 = (torch.from_numpy((0.1 * rng.randn(M)).astype(np.float32)) for _ in range(2))
-    sid = rng.randint(0, C, M).astype(np.int32)
-    tid = ((sid + rng.randint(0, C, M)) % C).astype(np.int32)  # equal to sid 1 time in C
+    if ids == "random":
+        sid = rng.randint(0, C, M)
+        tid = (sid + rng.randint(0, C, M)) % C
+    elif ids == "unknown":
+        sid, tid = rng.randint(-2, C + 2, M), rng.randint(-2, C + 2, M)
+        sid[:4], tid[:4] = [7, 0, -1, C], [0, -1, 0, 0]
+    else:
+        pairs = [(s, t) for s in range(C) for t in range(C) if s != t] or [(0, 1)]
+        cuts = np.sort(rng.choice(np.arange(1, M), len(pairs) - 1, replace=False))
+        sizes = np.diff(np.concatenate([[0], cuts, [M]]))
+        sid, tid = (np.repeat(np.asarray(col), sizes) for col in zip(*pairs))
     w = np.where(rng.rand(M) < 0.5, (rng.rand(M) > 0.2).astype(np.float32),
                  rng.rand(M).astype(np.float32)).astype(np.float32)
-    return j1, j2, r1, r2, torch.from_numpy(sid), torch.from_numpy(tid), torch.from_numpy(w)
+    return (j1, j2, r1, r2, torch.from_numpy(sid.astype(np.int32)),
+            torch.from_numpy(tid.astype(np.int32)), torch.from_numpy(w))
 
 
-@pytest.mark.parametrize("C,M,cols_per_block,tile_cols", [(1, 333, 192, 64), (2, 1500, 512, 256),
-                                                          (3, 700, 256, 96)])
-def test_gn_rows_kernel_emulated(emu, C, M, cols_per_block, tile_cols):
-    args = _rows_inputs(C, M, seed=C)
-    S = 6 * C + 1
-    nt = (S + 3) // 4
-    nblocks = -(-M // cols_per_block)
-    partials = torch.zeros((nblocks, nt * (nt + 1) // 2 * 16))
-    G = torch.zeros((S, S), dtype=torch.float64)
-    assert emu.dpt_gn_rows(*[a.data_ptr() for a in args], M, C, cols_per_block, tile_cols,
-                           partials.data_ptr(), nblocks, G.data_ptr(), None) == 0
-    G = G.numpy()
+def _gn_rows_emulated(emu, args, C, nblocks):
+    M = args[0].shape[1]
+    sums = C * (C + 1) // 2 * 28
+    scratch = torch.full(((nblocks + 2) * sums,), float("nan"))
+    ticket = torch.zeros(1, dtype=torch.int32)
+    G = torch.full((6 * C + 1, 6 * C + 1), float("nan"), dtype=torch.float64)
+    assert emu.dpt_gn_rows(*[a.data_ptr() for a in args], M, C, nblocks,
+                           scratch.data_ptr(), ticket.data_ptr(), G.data_ptr(), None) == 0
+    assert int(ticket) == 0  # the last block leaves the ticket ready for the next call
+    return G.numpy()
+
+
+# C from 1 to 14 (C = 14: 94 KB of class tables, above the 48 KB default);
+# ragged last units (M no multiple of 128), grids of 1 to 4 blocks and one
+# (M = 5) with blocks that get no unit; 32, 16, 8, 4, 2 and 1 class tables a
+# warp (C <= 3, 4, 5, 7, 10 and >= 11)
+_ROWS_CASES = [(1, 333, 2, "unknown"), (2, 1500, 3, "random"), (2, 1500, 2, "unknown"),
+               (3, 700, 2, "random"), (4, 700, 1, "unknown"), (5, 2000, 3, "unknown"),
+               (5, 2000, 2, "random"), (2, 3000, 3, "sorted"), (5, 3000, 4, "sorted"),
+               (7, 1200, 2, "unknown"), (10, 1200, 1, "random"), (14, 3000, 2, "sorted"),
+               (14, 1200, 2, "unknown"), (21, 700, 2, "random"), (2, 5, 3, "unknown")]
+
+
+@pytest.mark.parametrize("C,M,nblocks,ids", _ROWS_CASES)
+def test_gn_rows_kernel_emulated(emu, C, M, nblocks, ids):
+    """Against the float64 plain version; G exactly symmetric; two launches
+    bit-equal."""
+    args = _rows_inputs(C, M, seed=C + M, ids=ids)
+    G = _gn_rows_emulated(emu, args, C, nblocks)
     np.testing.assert_array_equal(G, G.T)
+    np.testing.assert_array_equal(G, _gn_rows_emulated(emu, args, C, nblocks))
     H, b, c = (x.numpy() for x in gn.gn_rows_plain(*[a.double() if a.is_floating_point() else a
                                                      for a in args], C))
     n = 6 * C
+    assert np.abs(H).max() > 0 and np.abs(b).max() > 0
     np.testing.assert_allclose(G[:n, :n], H, rtol=0, atol=1e-6 * np.abs(H).max())
     np.testing.assert_allclose(G[:n, n], b, rtol=0, atol=1e-6 * np.abs(b).max())
     np.testing.assert_allclose(G[n, n], c, rtol=1e-6)
+
+
+def test_gn_rows_kernel_emulated_one_unknown_id(emu):
+    """Rows with exactly one id outside [0, C) add to H and b at the other
+    id's block: C = 2, every row sid = 7, tid = 0 or sid = 1, tid = -1."""
+    args = list(_rows_inputs(2, 700, seed=3))
+    args[4] = torch.from_numpy(np.where(np.arange(700) % 3 == 0, 7, 1).astype(np.int32))
+    args[5] = torch.from_numpy(np.where(np.arange(700) % 3 == 0, 0, -1).astype(np.int32))
+    G = _gn_rows_emulated(emu, args, 2, 2)
+    H, b, c = (x.numpy() for x in gn.gn_rows_plain(*[a.double() if a.is_floating_point() else a
+                                                     for a in args], 2))
+    assert np.abs(H[:6, :6]).max() > 0 and np.abs(H[6:, 6:]).max() > 0 and not H[:6, 6:].any()
+    np.testing.assert_allclose(G[:12, :12], H, rtol=0, atol=1e-6 * np.abs(H).max())
+    np.testing.assert_allclose(G[:12, 12], b, rtol=0, atol=1e-6 * np.abs(b).max())
+    np.testing.assert_allclose(G[12, 12], c, rtol=1e-6)
+
+
+def test_emulated_warp_intrinsics(emu):
+    """``__shfl_sync``, ``__ballot_sync``, ``__match_any_sync`` and ``__ffs``
+    of the emulation, per warp of a block of 72 threads (the last warp has 8)."""
+    n = 72
+    rng = np.random.RandomState(0)
+    vals = rng.randint(0, 4, n).astype(np.int32)
+    src = rng.randint(0, 64, n).astype(np.int32)  # lanes above 31 wrap, as on the card
+    src[64:] %= 8  # ... within the last warp's lanes
+    outs = [np.full(n, -1, np.int32), np.zeros(n, np.uint32), np.zeros(n, np.uint32),
+            np.full(n, -1, np.int32)]
+    fn = emu.emu_warp_ops
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    assert fn(vals.ctypes.data, src.ctypes.data, *[o.ctypes.data for o in outs], n) == 0
+    shfl, ballot, match, first = outs
+    for t in range(n):
+        w0 = t // 32 * 32
+        lanes = vals[w0:w0 + 32]
+        assert shfl[t] == vals[w0 + src[t] % 32]
+        assert ballot[t] == sum(1 << l for l in range(len(lanes)) if lanes[l] & 1)
+        assert match[t] == sum(1 << l for l in range(len(lanes)) if lanes[l] == vals[t])
+        assert first[t] == int(np.flatnonzero(lanes == vals[t])[0])
+
+
+@pytest.mark.parametrize("nbytes,allow,ok", [(16384, -1, True), (65536, -1, False),
+                                             (65536, 65536, True), (131072, 65536, False),
+                                             (232448, 232448, True), (240000, 240000, False)])
+def test_emulated_dynamic_smem_limit(emu, nbytes, allow, ok):
+    """As on the card: more than 48 KB of dynamic shared memory only after
+    ``cudaFuncSetAttribute`` raised the kernel's limit, and never above 227 KB."""
+    out = np.full(1, np.nan, np.float32)
+    fn = emu.emu_dynamic_smem_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    err = fn(nbytes, allow, out.ctypes.data)
+    assert (err == 0) == ok
+    if ok:
+        assert out[0] == nbytes // 4 - 1
 
 
 @pytest.mark.parametrize("chunk", [512, 384])
@@ -420,9 +508,10 @@ def test_new_entry_points_reject_bad_arguments(emu):
     assert emu.dpt_hbm_read_sum(d, 768, 0, p, 8, p, p, None, None) != 0  # no repeat
     assert emu.dpt_hbm_read_sum(d, 768, 1, p, 0, p, p, None, None) != 0  # no block
     z = [d] * 7
-    assert emu.dpt_gn_rows(*z, 100, 15, 256, 32, p, 1, p, None) != 0  # more tiles than threads
-    assert emu.dpt_gn_rows(*z, 100, 5, 256, 256, p, 1, p, None) != 0  # staging exceeds shared memory
-    assert emu.dpt_gn_rows(*z, 1000, 2, 256, 256, p, 1, p, None) != 0  # blocks do not cover M
+    assert emu.dpt_gn_rows(*z, 100, 22, 1, p, p, p, None) != 0  # class tables exceed shared memory
+    assert emu.dpt_gn_rows(*z, 100, 0, 1, p, p, p, None) != 0  # no cloud
+    assert emu.dpt_gn_rows(*z, 0, 2, 1, p, p, p, None) != 0  # no row
+    assert emu.dpt_gn_rows(*z, 100, 2, 0, p, p, p, None) != 0  # no block
 
 
 # ---------------------------------------------------------------------------
