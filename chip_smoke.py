@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
-(nvcc, sm_90a) and the native gridder, then runs four paths of the port:
+(nvcc, sm_90a) and the native gridder, then runs five paths of the port:
 
 - ICP scan alignment: B1/B2 held against their plain PyTorch versions
   (float32 and float64) at the engine's shapes (~8M correspondences, chunk
@@ -56,20 +56,38 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   one-off) an earlier E6 and E7 are built from those files and held bit for
   bit against the shipped ones, calibrated, and timed in turns with them.
 
+- Ground truth and its inputs (no hand-written kernel on this path): on the
+  DSLR scene with its true poses, ``tools.ground_truth_creator`` with splat
+  occlusion and with a 1 cm surface mesh (every valid ground-truth pixel
+  within 1 mm of the ray-cast surface, the valid share above the bound from
+  the points per pixel, the mesh occlusion depth within 1e-4 m, every kept
+  point seen in >= 2 images by the tool's own ``_visible_mask``);
+  ``tools.normal_estimator`` and ``tools.splat_creator`` with a mesh that
+  leaves out a rectangle (>= 95 % of the splats in it), then the ground
+  truth with mesh + splats; the four device tools on small inputs on the
+  card and on the CPU (depth maps bit-equal); ``tools.cube_map_renderer`` on
+  ``bench.py``'s 10 M-point cloud at 2048^2 (the raw z-buffer and winner
+  colours at 100,000 pixels against a sort of (pixel, z, index), no pixel
+  left uncoloured) and ``tools.sfm_scale_estimator`` on its faces (scale 2
+  within 1e-4). Stage seconds, and under ``torch.profiler`` the shares of
+  ``scatter_reduce_`` and of the raster tiers in one image's and one face's
+  device time.
+
 It fails (non-zero exit, no result line) if CUDA is absent, a kernel does
 not build, launch or agree, a path did not launch each of its kernels, the
 LM ladders launch B1 more than twice per iteration, the
 alignment does not remove the initial offset, the registration does not
 lower the cost and the pose error, the engines of the A/B end at different
 poses, the repeat slope and the event time of the moment pass disagree, the
-read bandwidth or a probe's rate comes out above the card's stated peak, or
-the brick path and B3 disagree. The last line is
+read bandwidth or a probe's rate comes out above the card's stated peak, the
+brick path and B3 disagree, or a check of the ground-truth phase misses. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and the one before that the per-kernel JSON.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1507,7 +1525,475 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
             fail(f"the registrator's main path never launched kernel {k}")
     if not captured:
         fail("DSLR: no derivs-mode B3 launch to keep the inputs of")
-    return launches, captured
+    return launches, captured, (tq, tt)
+
+
+# ---------------------------------------------------------------------------
+# Ground truth and rendering (slice 3): no hand-written kernel on this path
+# ---------------------------------------------------------------------------
+
+GT_DEPTH_TOL = 1e-3  # m, a ground-truth pixel against the ray-cast surface at its centre
+GT_MESH_TOL = 1e-4  # m, the mesh occlusion depth against the ray-cast surface
+# The least valid share of a ground-truth map, derived before the first run on
+# the card from the points per pixel: the DSLR scan has 200,000 points per m^2
+# and a pixel at 5 m covers (5 / 2800)^2 m^2, so a pixel centre's +-0.5 px
+# window holds Poisson(0.638) points and is valid with probability
+# 1 - exp(-0.638) = 0.472 when every point is kept and visible; 0.9 of that
+# leaves room for the 2-view filter at the scan's rim and the depth spread.
+GT_MIN_VALID = 0.9 * (1.0 - np.exp(-200_000 * (5.0 / 2800.0) ** 2))
+GT_MESH_SPACING = 0.01  # m: a 1 cm edge is ~5.6 px at 5 m, the 8-px raster tier
+GT_HOLE = (-0.5, 0.5, -0.4, 0.4)  # m, the rectangle the splat creator's mesh leaves out
+GT_SPLATS_IN_HOLE = 0.95
+CUBE_POINTS, CUBE_SIZE, CUBE_SAMPLES = 10_000_000, 2048, 100_000  # bench.py:461
+CUBE_SMALL = (200_000, 256)
+SFM_SCALE, SFM_TOL = 2.0, 1e-4
+CPU_GAP_SHARE = 1e-4  # at most this share of depth pixels may differ between CUDA and CPU
+SMALL_MLP_TOL = 1e-6
+
+
+def cube_cloud(n_points, seed=0):
+    """A copy of ``bench.py:_cube_cloud``: random directions, distances 1-20."""
+    rng = np.random.RandomState(seed)
+    d = rng.uniform(1.0, 20.0, n_points).astype(np.float32)
+    v = rng.randn(n_points, 3).astype(np.float32)
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    cols = rng.randint(0, 255, (n_points, 3)).astype(np.uint8)
+    return v * d[:, None], cols
+
+
+def read_raw(path: str, h: int, w: int):
+    return np.fromfile(path, np.float32).reshape(h, w)
+
+
+def stage_line(label: str, timings: dict) -> str:
+    return f"{label} stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+
+
+def check_gt_run(torch, gt, synthetic, state, out: str, c: dict, label: str, mesh: bool):
+    """One GroundTruthCreator run's outputs against the ray-cast surface:
+    every valid ground-truth pixel within GT_DEPTH_TOL, the valid share at
+    least GT_MIN_VALID, the mesh occlusion depth within GT_MESH_TOL on covered
+    interior pixels, and every kept point seen in >= 2 images by the port's
+    own ``_visible_mask`` (recounted from the written occlusion depths)."""
+    from dataset_pipeline_tpu_torch.io.ply import read_ply
+
+    W, H, f = c["width"], c["height"], c["f"]
+    cx, cy = (W - 1) / 2.0, (H - 1) / 2.0
+    kept = torch.from_numpy(read_ply(os.path.join(out, "scan0.ply")).positions).cuda()
+    counts = torch.zeros(len(kept), dtype=torch.int32, device="cuda")
+    worst, worst_mesh, least_valid = 0.0, 0.0, 1.0
+    for im in state.images:
+        truth = synthetic.surface_depth(torch.as_tensor(im.qvec, device="cuda"),
+                                        torch.as_tensor(im.tvec, device="cuda"), W, H, f, cx, cy,
+                                        synthetic.DEPTH)
+        d = torch.from_numpy(read_raw(os.path.join(out, "ground_truth_depth", im.name), H, W)).cuda()
+        ok = torch.isfinite(d)
+        least_valid = min(least_valid, float(ok.double().mean()))
+        worst = max(worst, float((d[ok].double() - truth[ok]).abs().max()))
+        od = torch.from_numpy(read_raw(os.path.join(out, "occlusion_depth", im.name), H, W)).cuda()
+        if mesh:
+            inner = torch.zeros_like(ok)
+            inner[4:-4, 4:-4] = True
+            cov = inner & (od > 0)
+            if float(cov.double().mean()) < 0.9:
+                fail(f"{label}: the mesh covers {float(cov.double().mean()):.3f} of {im.name}")
+            worst_mesh = max(worst_mesh, float((od[cov].double() - truth[cov]).abs().max()))
+        cam = state.cameras[im.camera_id]
+        pose = gt._image_pose(im, np.eye(4), "cuda")
+        vis, _, _, _ = gt._visible_mask(cam, pose.q, pose.t, kept, od, W, H)
+        counts += vis.to(torch.int32)
+    least_views = int(counts.min())
+    print(f"{label}: ground truth vs the ray-cast surface max |d| {worst * 1e3:.6f} mm; least valid "
+          f"share {least_valid:.4f} (bound {GT_MIN_VALID:.4f}); kept {len(kept)} points, least "
+          f"views {least_views}" + (f"; mesh occlusion depth max |d| {worst_mesh * 1e3:.6f} mm"
+                                    if mesh else ""))
+    if not worst <= GT_DEPTH_TOL:
+        fail(f"{label}: a ground-truth pixel is {worst:.3e} m from the surface (> {GT_DEPTH_TOL})")
+    if not least_valid >= GT_MIN_VALID:
+        fail(f"{label}: a ground-truth map is {least_valid:.4f} valid (< {GT_MIN_VALID:.4f})")
+    if mesh and not worst_mesh <= GT_MESH_TOL:
+        fail(f"{label}: the mesh occlusion depth is {worst_mesh:.3e} m off (> {GT_MESH_TOL})")
+    if least_views < 2:
+        fail(f"{label}: a kept point is visible in {least_views} image(s)")
+    return {"max_abs_m": worst, "least_valid": least_valid, "kept": len(kept)}
+
+
+def profile_shares(torch, fn, label: str):
+    """Device time of ``fn`` under torch.profiler, and the shares of
+    ``scatter_reduce_`` and of the raster tiers' ranges in it. The device
+    time is counted once, on the host-side events (an op's self device time
+    holds the kernels it launched itself; a range's total, those of its ops)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = []
+    for _ in range(5):  # the first call warms; the median of the five is the steady wall
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+    total = sum(e.self_device_time_total for e in ev)
+    scat = sum(e.self_device_time_total for e in ev if "scatter_reduce" in e.key)
+    tiers = sum(e.device_time_total for e in ev if e.key.startswith("mesh_raster.tier"))
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    wall = float(np.median(walls)) * 1e3
+    print(f"profile {label}: wall {wall:.3f} ms (median of 5, first {walls[0] * 1e3:.3f}); device "
+          f"{total / 1e3:.3f} ms; scatter_reduce_ {scat / max(total, 1):.3f}"
+          f", raster tiers {tiers / max(total, 1):.3f}; top ops (ms): "
+          + ", ".join(f"{e.key} {e.self_device_time_total / 1e3:.3f}" for e in top))
+    if total <= 0:
+        fail(f"profile {label}: no device time recorded")
+    return {"wall_ms": wall, "device_ms": total / 1e3, "scatter_share": scat / total,
+            "raster_share": tiers / total}
+
+
+def check_zbuffer_forms(torch, splat):
+    """The z-buffer scatter as shipped (the landing points selected first)
+    against the first form (the others routed to a spare slot, as an ``inf``
+    or, as the first raster tiers had it, a finite value), at the shapes of
+    the splat tiers, the GT z-buffer, the six cube faces and a raster tier,
+    on uniform random pixel ids: equal results, times in turns."""
+    def spare_slot(flat, z, n_px, finite=False):
+        inside = (flat >= 0) & (flat < n_px)
+        d = torch.full((n_px + 1,), float("inf"), device="cuda")
+        d.scatter_reduce_(0, torch.where(inside, flat, n_px),
+                          z if finite else torch.where(inside, z, float("inf")),
+                          reduce="amin", include_self=True)
+        return d[:n_px]
+
+    g = torch.Generator(device="cuda").manual_seed(12)
+    res = {}
+    for label, n, n_px, off in (("splat_tiers", 5_647_680, 4 * 3078 * 2054, 0.5),
+                                ("gt_zbuffer", 5_647_680, 3072 * 2048, 0.6),
+                                ("cube_faces", 60_000_000, 6 * 2048 * 2048, 5 / 6),
+                                ("raster_tier8", 25_000_000, 3072 * 2048, 0.75)):
+        flat = torch.randint(0, n_px, (n,), generator=g, device="cuda")
+        flat = torch.where(torch.rand(n, generator=g, device="cuda") < off, -1, flat)
+        z = torch.rand(n, generator=g, device="cuda") + 1.0
+        if not torch.equal(spare_slot(flat, z, n_px), splat.zbuffer_min(flat, z, n_px)):
+            fail(f"z-buffer forms disagree at {label}")
+        first, shipped = in_turns(lambda: spare_slot(flat, z, n_px),
+                                  lambda: splat.zbuffer_min(flat, z, n_px), torch, {}, {})
+        finite = cuda_ms(lambda: spare_slot(flat, z, n_px, finite=True), torch)
+        res[label] = {"spare_slot_ms": first, "shipped_ms": shipped, "spare_finite_ms": finite}
+        print(f"z-buffer {label} (n {n}, {n_px} px, {off:.2f} off the buffer): shipped "
+              f"{shipped[0]:.3f} / {shipped[1]:.3f} ms, spare slot {first[0]:.3f} / {first[1]:.3f} ms "
+              f"(inf), {finite:.3f} ms (finite values)")
+        del flat, z
+    return res
+
+
+def run_gt_dslr(torch, synthetic, root: str, truth):
+    """(a) GroundTruthCreator at the DSLR configuration's full width, with
+    splat occlusion and with a 1 cm surface mesh, then (d) NormalEstimator
+    and SplatCreator on the DSLR scan and the GroundTruthCreator with mesh +
+    splats."""
+    from dataset_pipeline_tpu_torch.io.ply import PointCloud, read_ply, write_ply
+    from dataset_pipeline_tpu_torch.io.state import load_colmap_state
+    from dataset_pipeline_tpu_torch.tools import ground_truth_creator as gt
+    from dataset_pipeline_tpu_torch.tools import normal_estimator, splat_creator
+
+    c = synthetic.DSLR
+    state_dir = os.path.join(root, "state_true")
+    synthetic.write_state(state_dir, *truth)
+    state = load_colmap_state(state_dir, device="cuda")
+    half_w, half_h = synthetic.scan_extent(c["width"], c["height"], c["f"], c["n_images"],
+                                           synthetic.DEPTH, c["baseline"])
+    t0 = time.perf_counter()
+    verts, faces = synthetic.surface_mesh(half_w, half_h, GT_MESH_SPACING, synthetic.DEPTH)
+    write_ply(os.path.join(root, "mesh.ply"), PointCloud(verts, faces=faces))
+    hv, hf = synthetic.surface_mesh(half_w, half_h, GT_MESH_SPACING, synthetic.DEPTH, hole=GT_HOLE)
+    write_ply(os.path.join(root, "mesh_hole.ply"), PointCloud(hv, faces=hf))
+    print(f"GT meshes: {len(faces)} faces (1 cm), {len(hf)} with the hole, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    base = ["--scan_alignment_path", os.path.join(root, "scene.mlp"), "--state_path", state_dir,
+            "--write_occlusion_depth", "1", "--device", "cuda"]
+    res = {}
+    for label, extra in (("splats", []),
+                         ("mesh", ["--occlusion_mesh_path", os.path.join(root, "mesh.ply")])):
+        out = os.path.join(root, f"gt_{label}")
+        timings = {}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if gt.main(base + ["--output_folder_path", out, *extra], timings=timings) != 0:
+            fail(f"ground_truth_creator ({label}) failed")
+        wall = time.perf_counter() - t0
+        print(stage_line(f"GT DSLR {label}", timings) + f"; wall {wall:.3f} s, "
+              f"{wall / len(state.images):.3f} s/image; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        res[label] = check_gt_run(torch, gt, synthetic, state, out, c, f"GT DSLR {label}",
+                                  mesh=bool(extra))
+        res[label].update(wall_s=wall, stages=timings)
+        shutil.rmtree(out)
+
+    # (d) normals, splats where the mesh has a hole, then GT with mesh + splats
+    timings = {}
+    t0 = time.perf_counter()
+    merged = os.path.join(root, "merged.ply")
+    if normal_estimator.main(["-i", os.path.join(root, "scene.mlp"), "-o", merged,
+                              "--device", "cuda"], timings=timings) != 0:
+        fail("normal_estimator failed")
+    splats = os.path.join(root, "splats.ply")
+    if splat_creator.main(["--point_normal_cloud_path", merged, "--mesh_path",
+                           os.path.join(root, "mesh_hole.ply"), "--output_path", splats,
+                           "--device", "cuda"], timings=timings) != 0:
+        fail("splat_creator failed")
+    print(stage_line("normals + splats DSLR", timings)
+          + f"; wall {time.perf_counter() - t0:.3f} s")
+    centres = read_ply(splats).positions.reshape(-1, 4, 3).mean(1)
+    x0, x1, y0, y1 = GT_HOLE
+    m = GT_MESH_SPACING
+    in_hole = ((centres[:, 0] >= x0 - m) & (centres[:, 0] <= x1 + m)
+               & (centres[:, 1] >= y0 - m) & (centres[:, 1] <= y1 + m))
+    share = float(in_hole.mean()) if len(centres) else 0.0
+    hole_pts = (x1 - x0) * (y1 - y0) * c["scan_density"]
+    print(f"splats: {len(centres)} (the hole holds ~{hole_pts:.0f} scan points), "
+          f"{share:.4f} of their centres in the hole")
+    if len(centres) < 0.5 * hole_pts or share < GT_SPLATS_IN_HOLE:
+        fail(f"splats: {len(centres)} splats, {share:.4f} in the hole (< {GT_SPLATS_IN_HOLE})")
+    out = os.path.join(root, "gt_mesh_splats")
+    timings = {}
+    t0 = time.perf_counter()
+    if gt.main(base + ["--output_folder_path", out, "--occlusion_mesh_path",
+                       os.path.join(root, "mesh_hole.ply"), "--occlusion_splats_path", splats],
+               timings=timings) != 0:
+        fail("ground_truth_creator (mesh + splats) failed")
+    print(stage_line("GT DSLR mesh + splats", timings) + f"; wall {time.perf_counter() - t0:.3f} s")
+    res["mesh_splats"] = check_gt_run(torch, gt, synthetic, state, out, c,
+                                      "GT DSLR mesh + splats", mesh=False)
+    # one image's GT stages under the profiler (mesh occlusion)
+    mesh = gt.build_occlusion_mesh(verts, faces, device="cuda")
+    im = state.images[len(state.images) // 2]
+    cam, pose = state.cameras[im.camera_id], gt._image_pose(im, np.eye(4), "cuda")
+    pts = torch.from_numpy(read_ply(os.path.join(root, "scan.ply")).positions).cuda()
+    keep = torch.ones(len(pts), dtype=torch.bool, device="cuda")
+
+    def one_image(occlusion_mesh):
+        od = gt.render_occlusion_depth(cam, pose, pts, 0.03, occlusion_mesh=occlusion_mesh)
+        gt._visible_mask(cam, pose.q, pose.t, pts, od, cam.width, cam.height)
+        gt._gt_depth_image(cam, pose.q, pose.t, pts, keep, od, cam.width, cam.height)
+
+    res["profile_splats"] = profile_shares(torch, lambda: one_image(None),
+                                           "one DSLR GT image (splat occlusion)")
+    res["profile"] = profile_shares(torch, lambda: one_image(mesh), "one DSLR GT image (mesh occlusion)")
+    shutil.rmtree(out)
+    return res
+
+
+def run_cube_and_sfm(torch, root: str):
+    """(b) CubeMapRenderer at bench.py's size with the raw z-buffer checked
+    against an independent sort, (c) SfMScaleEstimator on its faces."""
+    from dataset_pipeline_tpu_torch.io import colmap as cio
+    from dataset_pipeline_tpu_torch.io.ply import PointCloud, write_ply
+    from dataset_pipeline_tpu_torch.ops import splat
+    from dataset_pipeline_tpu_torch.tools import cube_map_renderer as cube
+    from dataset_pipeline_tpu_torch.tools import sfm_scale_estimator as sfm
+
+    t0 = time.perf_counter()
+    pos, cols = cube_cloud(CUBE_POINTS)
+    os.makedirs(os.path.join(root, "cube"))
+    ply = os.path.join(root, "cube", "scan0.ply")
+    write_ply(ply, PointCloud(pos, None, cols))
+    print(f"cube cloud: {CUBE_POINTS} points written in {time.perf_counter() - t0:.1f} s")
+    timings, stats = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cube.main(["-c", ply, "-o", ply, "--size", str(CUBE_SIZE), "--device", "cuda"],
+                 timings=timings, stats=stats) != 0:
+        fail("cube_map_renderer failed")
+    wall = time.perf_counter() - t0
+    print(stage_line("cube map", timings) + f"; wall {wall:.3f} s, {wall / 6:.3f} s/face; "
+          f"flood fill steps {stats['flood_fill_steps']}, unfilled {stats['flood_fill_unfilled']}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if stats["flood_fill_unfilled"] != 0:
+        fail(f"cube map: the flood fill left {stats['flood_fill_unfilled']} pixels uncoloured")
+
+    # the raw z-buffer, by the tool's own render call, against a sort of (pixel, z, index)
+    S = CUBE_SIZE
+    p = cube.face_points(torch.from_numpy(pos).cuda())
+    c_dev = torch.from_numpy(cols).cuda()
+    raw, rcol = splat.render_points_depth_color(p, c_dev, S, S, S / 2.0, S / 2.0, S // 2, S // 2)
+    z = p[..., 2]
+    x = (S / 2.0) * p[..., 0] / torch.where(z > 0, z, 1.0) + S // 2
+    y = (S / 2.0) * p[..., 1] / torch.where(z > 0, z, 1.0) + S // 2
+    ix, iy = torch.floor(x), torch.floor(y)
+    ok = (z > 0) & (ix >= 0) & (iy >= 0) & (ix < S) & (iy < S)
+    face = torch.arange(6, device="cuda")[:, None].expand_as(z)
+    key = torch.where(ok, (face * S + iy.long().clamp(0, S - 1)) * S + ix.long().clamp(0, S - 1),
+                      6 * S * S).reshape(-1)
+    zz = torch.where(ok, z, float("inf")).reshape(-1)
+    order = torch.argsort(zz, stable=True)  # points by index already: then z, then pixel
+    order = order[torch.argsort(key[order], stable=True)]
+    ks = key[order]
+    first = torch.ones_like(ks, dtype=torch.bool)
+    first[1:] = ks[1:] != ks[:-1]
+    win_px, win_pt = ks[first], order[first] % CUBE_POINTS
+    keep = win_px < 6 * S * S
+    win_px, win_pt, win_z = win_px[keep], win_pt[keep], zz[order][first][keep]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sample = torch.randint(0, 6 * S * S, (CUBE_SAMPLES,), generator=g, device="cuda")
+    pos_in = torch.searchsorted(win_px, sample)
+    hit = (pos_in < len(win_px)) & (win_px[pos_in.clamp(max=len(win_px) - 1)] == sample)
+    exp_z = torch.where(hit, win_z[pos_in.clamp(max=len(win_px) - 1)], float("inf"))
+    got_z = raw.reshape(-1)[sample]
+    bad_z = int((got_z != exp_z).sum())
+    exp_c = c_dev[win_pt[pos_in.clamp(max=len(win_px) - 1)]]
+    got_c = rcol.reshape(-1, 3)[sample]
+    bad_c = int((hit[:, None] & (got_c != exp_c)).any(1).sum())
+    depth_file = torch.from_numpy(np.stack([read_raw(f"{ply}.{n}.depth", S, S)
+                                            for n in splat.CUBE_FACE_NAMES])).cuda().reshape(-1)
+    fin = torch.isfinite(got_z)
+    bad_file = int((depth_file[sample][fin] != got_z[fin]).sum())
+    print(f"cube map raw z-buffer at {CUBE_SAMPLES} random pixels ({int(hit.sum())} covered): "
+          f"{bad_z} depths and {bad_c} colours differ from the sort of (pixel, z, index); "
+          f"{bad_file} covered pixels changed by the hole fill")
+    if bad_z or bad_c or bad_file:
+        fail("cube map: the z-buffer disagrees with the independent sort")
+    def one_face():
+        d, col = splat.render_points_depth_color(p[:1], c_dev, S, S, S / 2.0, S / 2.0, S // 2, S // 2)
+        splat.fill_depth_holes(d)
+        splat.flood_fill_colors(*splat.fill_color_from_depth(d, col))
+
+    face_ms = profile_shares(torch, one_face, "one 2048^2 cube face (render and fills)")
+    del p, raw, rcol, z, x, y, key, zz, order, ks
+
+    # (c) SfM on the "right" face at a known scale
+    rng = np.random.RandomState(77)
+    depth = read_raw(f"{ply}.right.depth", S, S)
+    ys, xs = np.nonzero(np.isfinite(depth))
+    sel = rng.choice(len(ys), size=500, replace=False)
+    keyp = np.stack([xs[sel], ys[sel]], -1).astype(np.float64)
+    f = cc = S / 2
+    zs = depth[ys[sel], xs[sel]]
+    pts3 = np.stack([(keyp[:, 0] - cc) / f * zs, (keyp[:, 1] - cc) / f * zs, zs], -1)
+    R = splat.CUBE_FACE_ROTATIONS[3]
+    w = np.sqrt(1 + np.trace(R)) / 2
+    q = np.asarray([w, (R[2, 1] - R[1, 2]) / (4 * w), (R[0, 2] - R[2, 0]) / (4 * w),
+                    (R[1, 0] - R[0, 1]) / (4 * w)])
+    sfm_dir = os.path.join(root, "sfm")
+    cio.write_model(sfm_dir, cio.ColmapModel(
+        {1: cio.ColmapCamera(1, "PINHOLE", S, S, np.asarray([f, f, cc, cc]))},
+        {1: cio.ColmapImage(1, q, np.zeros(3), 1, "scan0.ply.right.png", keyp,
+                            np.arange(500, dtype=np.int64))},
+        {i: cio.ColmapPoint3D(i, (pts3 @ R)[i] / SFM_SCALE, np.zeros(3, np.uint8), 0.1, [(1, i)])
+         for i in range(500)}))
+    t0 = time.perf_counter()
+    cube_dir = os.path.join(root, "cube")
+    if sfm.main(["-s", sfm_dir, "-si", cube_dir, "-i", cube_dir,
+                 "-o", os.path.join(root, "scaled")]) != 0:
+        fail("sfm_scale_estimator failed")
+    scale, _, count = sfm.estimate_scale_and_poses(cio.read_model(sfm_dir, read_points=True),
+                                                   cube_dir, 1)
+    print(f"SfM scale estimator: scale {scale:.9f} from {count} observations (true {SFM_SCALE}) "
+          f"in {time.perf_counter() - t0:.3f} s")
+    if not abs(scale - SFM_SCALE) <= SFM_TOL:
+        fail(f"SfM scale {scale} is not within {SFM_TOL} of {SFM_SCALE}")
+    shutil.rmtree(cube_dir)
+    return {"wall_s": wall, "stages": timings, **stats, "profile": face_ms}
+
+
+def compare_depth_dirs(a: str, b: str, label: str):
+    """Bit-equality of the raw depth maps of two output folders; returns the
+    number of differing pixels and fails above CPU_GAP_SHARE of them."""
+    n_px = n_diff = 0
+    worst = 0.0
+    for d, _, fs in os.walk(a):
+        for fname in fs:
+            rel = os.path.relpath(os.path.join(d, fname), a)
+            if not ("ground_truth_depth" in rel or "occlusion_depth" in rel or rel.endswith(".depth")):
+                continue
+            x, y = np.fromfile(os.path.join(a, rel), np.float32), np.fromfile(os.path.join(b, rel), np.float32)
+            if x.shape != y.shape:
+                fail(f"{label}: {rel} differs in size")
+            diff = (x != y) & ~(np.isnan(x) & np.isnan(y))
+            n_px += x.size
+            n_diff += int(diff.sum())
+            if diff.any():
+                worst = max(worst, float(np.nanmax(np.abs(x[diff].astype(np.float64) - y[diff]))))
+    print(f"{label}: CUDA vs CPU depth maps: {n_diff} of {n_px} pixels differ (max {worst:.3e})")
+    if n_px == 0 or n_diff > CPU_GAP_SHARE * n_px:
+        fail(f"{label}: {n_diff} of {n_px} depth pixels differ between CUDA and CPU")
+    return n_diff
+
+
+def run_small_cuda_vs_cpu(torch, synthetic, root: str):
+    """(e) The four device tools on small inputs on the card and on the CPU:
+    the same files (depth maps bit for bit, kept clouds and counts, .mlp
+    within SMALL_MLP_TOL, splats and normals)."""
+    from dataset_pipeline_tpu_torch.io.meshlab import read_meshlab_project
+    from dataset_pipeline_tpu_torch.io.ply import PointCloud, read_ply, write_ply
+    from dataset_pipeline_tpu_torch.tools import cube_map_renderer as cube
+    from dataset_pipeline_tpu_torch.tools import ground_truth_creator as gt
+    from dataset_pipeline_tpu_torch.tools import normal_estimator, splat_creator
+
+    t0 = time.perf_counter()
+    half_w, half_h = synthetic.scan_extent(640, 480, 2800.0 * 640 / 3072, 2, synthetic.DEPTH, 0.15)
+    verts, faces = synthetic.surface_mesh(half_w, half_h, 0.02, synthetic.DEPTH, hole=GT_HOLE)
+    write_ply(os.path.join(root, "mesh_small.ply"), PointCloud(verts, faces=faces))
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        o = os.path.join(root, f"tools_{dev}")
+        for extra, sub in (([], "gt"), (["--occlusion_mesh_path", os.path.join(root, "mesh_small.ply")],
+                                        "gt_mesh")):
+            if gt.main(["--scan_alignment_path", os.path.join(root, "scene.mlp"), "--state_path",
+                        os.path.join(root, "state"), "--output_folder_path", os.path.join(o, sub),
+                        "--write_occlusion_depth", "1", "--device", dev, *extra]) != 0:
+                fail(f"small ground_truth_creator on {dev} failed")
+        if normal_estimator.main(["-i", os.path.join(root, "scene.mlp"), "-o",
+                                  os.path.join(o, "merged.ply"), "--device", dev]) != 0:
+            fail(f"small normal_estimator on {dev} failed")
+        # both splat creators read the CPU's normals, so only the splat step is compared
+        if splat_creator.main(["--point_normal_cloud_path", os.path.join(root, "tools_cuda", "merged.ply"),
+                               "--mesh_path", os.path.join(root, "mesh_small.ply"),
+                               "--output_path", os.path.join(o, "splats.ply"), "--device", dev]) != 0:
+            fail(f"small splat_creator on {dev} failed")
+        os.makedirs(os.path.join(o, "cube"), exist_ok=True)
+        if dev == "cuda":
+            pos, cols = cube_cloud(CUBE_SMALL[0])
+            write_ply(os.path.join(root, "cube_small.ply"), PointCloud(pos, None, cols))
+        if cube.main(["-c", os.path.join(root, "cube_small.ply"), "-o",
+                      os.path.join(o, "cube", "s.ply"), "--size", str(CUBE_SMALL[1]),
+                      "--device", dev]) != 0:
+            fail(f"small cube_map_renderer on {dev} failed")
+        outs[dev] = o
+    a, b = outs["cuda"], outs["cpu"]
+    n_diff = compare_depth_dirs(a, b, "small tools")
+    for sub in ("gt", "gt_mesh"):
+        ka, kb = (read_ply(os.path.join(x, sub, "scan0.ply")).positions for x in (a, b))
+        if len(ka) != len(kb) or not np.array_equal(ka, kb):
+            fail(f"small {sub}: kept points differ ({len(ka)} on CUDA, {len(kb)} on the CPU)")
+        ma, mb = (read_meshlab_project(os.path.join(x, sub, "scan_alignment.mlp"))[0].global_T_mesh
+                  for x in (a, b))
+        if not np.abs(ma - mb).max() <= SMALL_MLP_TOL:
+            fail(f"small {sub}: scan_alignment.mlp differs")
+    na, nb = (read_ply(os.path.join(x, "merged.ply")) for x in (a, b))
+    n_gap = float(np.abs(na.normals - nb.normals).max())
+    sa, sb = (read_ply(os.path.join(x, "splats.ply")) for x in (a, b))
+    s_gap = float(np.abs(sa.positions - sb.positions).max()) if len(sa.positions) == len(sb.positions) else np.inf
+    for name in sorted(os.listdir(os.path.join(a, "cube"))):
+        if name.endswith(".png"):
+            from PIL import Image
+
+            if not np.array_equal(np.asarray(Image.open(os.path.join(a, "cube", name))),
+                                  np.asarray(Image.open(os.path.join(b, "cube", name)))):
+                fail(f"small cube map: {name} differs between CUDA and CPU")
+    print(f"small tools CUDA vs CPU ({time.perf_counter() - t0:.1f} s): kept points equal; normals max "
+          f"|d| {n_gap:.3e}; splats {len(sa.positions) // 4} vs {len(sb.positions) // 4}, max |d| {s_gap:.3e}")
+    if not np.array_equal(na.positions, nb.positions) or not n_gap <= 1e-4:
+        fail("small normal_estimator: CUDA and CPU normals differ by more than 1e-4")
+    if not s_gap <= SMALL_MLP_TOL:
+        fail("small splat_creator: CUDA and CPU splats differ")
+    return n_diff
+
+
+def check_no_jax() -> None:
+    if any(m in ("jax", "dataset_pipeline_tpu") or m.startswith(("jax.", "dataset_pipeline_tpu."))
+           for m in sys.modules):
+        fail("the port imported jax or the JAX package")
 
 
 def main(argv=None) -> int:
@@ -1558,9 +2044,7 @@ def main(argv=None) -> int:
         from dataset_pipeline_tpu_torch.utils import synthetic
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
-    if any(m in ("jax", "dataset_pipeline_tpu") or m.startswith(("jax.", "dataset_pipeline_tpu."))
-           for m in sys.modules):
-        fail("the port imported jax or the JAX package")
+    check_no_jax()
 
     smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
@@ -1647,8 +2131,29 @@ def main(argv=None) -> int:
         check_registrator_small(torch, image_registrator, synthetic.write_scene, cio,
                                 os.path.join(root, "small"))
         print(f"small registrator scene: {time.perf_counter() - t0:.1f} s")
-        reg, dslr_b3 = run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic,
-                                            cio, quat_to_matrix_np, os.path.join(root, "dslr"))
+        reg, dslr_b3, truth = run_registrator_dslr(torch, kernels, image_registrator, optimizer,
+                                                   synthetic, cio, quat_to_matrix_np,
+                                                   os.path.join(root, "dslr"))
+        torch.cuda.empty_cache()
+
+        # ground truth and rendering: no hand-written kernel on this path
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        gt_res = run_gt_dslr(torch, synthetic, os.path.join(root, "dslr"), truth)
+        torch.cuda.empty_cache()
+        gt_res["small_depth_pixels_differing"] = run_small_cuda_vs_cpu(
+            torch, synthetic, os.path.join(root, "small"))
+        torch.cuda.empty_cache()
+        gt_res["cube"] = run_cube_and_sfm(torch, root)
+        torch.cuda.empty_cache()
+        from dataset_pipeline_tpu_torch.ops import splat
+
+        gt_res["zbuffer_forms"] = check_zbuffer_forms(torch, splat)
+        torch.cuda.empty_cache()
+        if any(kernels.LAUNCHES.values()):
+            fail(f"the ground-truth path launched a hand-written kernel: {dict(kernels.LAUNCHES)}")
+        print(f"ground-truth phase: {time.perf_counter() - t0:.1f} s; "
+              + json.dumps({"ground_truth": gt_res}))
     b3["dslr_inputs"] = check_b3_at_captured(torch, tps, dslr_b3, "the DSLR run's first derivs launch",
                                              flat_sampler)
     del dslr_b3
@@ -1732,6 +2237,7 @@ def main(argv=None) -> int:
           + ", ".join(f"{r['name']}{'*' if loses(r) else ''}"
                       f"{' (redesigned)' if r['name'] in REDESIGNED else ''} {r['excess_ms']:.2f}"
                       for r in order))
+    check_no_jax()  # again: the later phases import more of the port
     print(json.dumps({"kernels": report}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,8 +1,11 @@
-"""Camera distortion models in torch: the forward path of the 14 COLMAP models.
+"""Camera distortion models in torch: the 14 COLMAP models, both directions.
 
-Port of the forward half of ``dataset_pipeline_tpu/models/cameras.py``:
-``project``, ``in_image``, ``scaled_by``, ``make_camera`` and ``init_cutoff``
-(with the Gauss-Newton undistortion it runs). A :class:`Camera` carries a
+Port of ``dataset_pipeline_tpu/models/cameras.py``: the forward path
+(``project``, ``distort``, ``normalized_to_image``, ``in_image``,
+``scaled_by``, ``make_camera``, ``init_cutoff``), the inverse path
+(``undistort``, ``image_to_normalized``, ``unproject`` by the fixed-count
+Gauss-Newton undistortion, and the undistortion lookup table), and the
+projection Jacobians by ``torch.func.jacfwd`` under ``vmap``. A :class:`Camera` carries a
 static model name and size plus a flat COLMAP-ordered parameter tensor, so
 ``torch.func.jacfwd`` differentiates through :meth:`Camera.with_params`.
 
@@ -12,7 +15,10 @@ tangential, rational, thin prism, FOV, and the equidistant fisheye pre-warp
 principal point is shifted by -0.5 at the I/O boundary (``io/state.py``).
 
 Squared norms of 2-vectors are the FMA form ``addcmul(x*x, y, y)``, the bits
-of XLA's CPU ``sum(xy * xy, -1)``.
+of XLA's CPU ``sum(xy * xy, -1)``. ``project(..., fused=True)`` ends in the
+FMA ``addcmul(c, xy, f)`` that XLA makes of ``xy * f + c`` inside ``jit``
+(outside ``jit`` JAX multiplies, then adds): bit-equal to the JAX function in
+either context for the models without distortion.
 """
 
 from __future__ import annotations
@@ -108,6 +114,15 @@ def _fisheye_prewarp(xy):
     r = torch.sqrt(torch.clamp(_sqnorm(xy), min=_EPS * _EPS))
     theta_by_r = torch.atan(r) / r
     return xy * torch.where(r < _EPS, torch.ones_like(theta_by_r), theta_by_r)
+
+
+def _fisheye_unwarp(xy):
+    """Inverse of the pre-warp: r -> tan(r)/r (invalid past pi/2)."""
+    r = torch.sqrt(torch.clamp(_sqnorm(xy), min=_EPS * _EPS))
+    factor = torch.tan(torch.clamp(r, max=0.5 * math.pi - 1e-4)) / r
+    factor = torch.where(r < _EPS, torch.ones_like(factor), factor)
+    factor = torch.where(r > 0.5 * math.pi, torch.full_like(factor, math.inf), factor)
+    return xy * factor
 
 
 class ModelSpec(NamedTuple):
@@ -214,10 +229,15 @@ def _warped(cam: Camera, xy):
     return _fisheye_prewarp(xy) if cam.spec.fisheye else xy
 
 
-def distorted_to_image(cam: Camera, xy):
+def distort(cam: Camera, xy):
+    """Normalized image plane -> distorted plane (includes the fisheye pre-warp)."""
+    return cam.spec.dist_fn(cam.dist_params, _warped(cam, xy))
+
+
+def distorted_to_image(cam: Camera, xy, fused: bool = False):
     f = torch.stack([cam.fx, cam.fy])
     c = torch.stack([cam.cx, cam.cy])
-    return xy * f + c
+    return torch.addcmul(c, xy, f) if fused else xy * f + c
 
 
 def image_to_distorted(cam: Camera, xy):
@@ -226,17 +246,25 @@ def image_to_distorted(cam: Camera, xy):
     return (xy - c) / f
 
 
-def project(cam: Camera, points):
+def normalized_to_image(cam: Camera, xy):
+    """Normalized plane -> pixels; beyond the radius cutoff -> inf (invalid)."""
+    w = _warped(cam, xy)
+    out = distorted_to_image(cam, cam.spec.dist_fn(cam.dist_params, w))
+    return torch.where(_sqnorm(w) > cam.radius_cutoff_sq, torch.full_like(out, math.inf), out)
+
+
+def project(cam: Camera, points, fused: bool = False):
     """Camera-frame 3D points ``(...,3)`` -> (pixels ``(...,2)``, valid mask).
 
     valid = in front of the camera AND inside the radius cutoff AND finite.
+    ``fused``: the last step as XLA compiles it inside ``jit``.
     """
     z = points[..., 2:3]
     safe_z = torch.where(torch.abs(z) < _EPS, torch.full_like(z, _EPS), z)
     n = points[..., :2] / safe_z
     w = _warped(cam, n)
     r2 = _sqnorm(w, keepdim=False)
-    pix = distorted_to_image(cam, cam.spec.dist_fn(cam.dist_params, w))
+    pix = distorted_to_image(cam, cam.spec.dist_fn(cam.dist_params, w), fused)
     valid = (z[..., 0] > _EPS) & (r2 <= cam.radius_cutoff_sq) & torch.all(
         torch.isfinite(pix), -1)
     return pix, valid
@@ -288,6 +316,95 @@ def _conventional_undistort(cam: Camera, dist_xy, init_xy, num_iters=_UNDIST_ITE
         u = torch.where(done | conv, u, u - step)
         done = done | conv
     return u
+
+
+def undistort(cam: Camera, dist_xy, num_iters=_UNDIST_ITERS):
+    """Distorted plane -> normalized plane (inverts :func:`distort`)."""
+    u = _conventional_undistort(cam, dist_xy, dist_xy, num_iters)
+    return _fisheye_unwarp(u) if cam.spec.fisheye else u
+
+
+def image_to_normalized(cam: Camera, pix, num_iters=_UNDIST_ITERS):
+    return undistort(cam, image_to_distorted(cam, pix), num_iters)
+
+
+def _with_depth(n, depth):
+    z = torch.as_tensor(depth, dtype=n.dtype, device=n.device)[..., None]
+    return torch.cat([n * z, torch.broadcast_to(z, n.shape[:-1] + (1,))], -1)
+
+
+def unproject(cam: Camera, pix, depth, num_iters=_UNDIST_ITERS):
+    """Pixels + depth (z) -> camera-frame 3D points."""
+    return _with_depth(image_to_normalized(cam, pix, num_iters), depth)
+
+
+# ---------------------------------------------------------------------------
+# Undistortion lookup table: per-pixel normalized coordinates computed once by
+# the full iterative undistortion, served later by a bilinear fetch.
+# ---------------------------------------------------------------------------
+
+
+class UndistortionLUT(NamedTuple):
+    values: torch.Tensor  # (gh, gw, 2) normalized coords at grid nodes
+    step: float  # grid spacing in pixels (node i,j sits at pixel (j*step, i*step))
+
+
+def build_undistortion_lut(cam: Camera, step: float = 1.0) -> UndistortionLUT:
+    """The pixel-grid -> normalized-plane table (full undistortion, once)."""
+    dev = cam.params.device
+    gw = int(math.ceil((cam.width - 1) / step)) + 1
+    gh = int(math.ceil((cam.height - 1) / step)) + 1
+    xs = torch.arange(gw, dtype=torch.float32, device=dev) * step
+    ys = torch.arange(gh, dtype=torch.float32, device=dev) * step
+    gx, gy = torch.meshgrid(xs, ys, indexing="xy")
+    n = image_to_normalized(cam, torch.stack([gx, gy], -1).reshape(-1, 2))
+    return UndistortionLUT(n.reshape(gh, gw, 2), float(step))
+
+
+def image_to_normalized_lut(cam: Camera, lut: UndistortionLUT, pix):
+    """Pixels -> normalized plane by a bilinear fetch from the table."""
+    g = pix / lut.step
+    gh, gw = lut.values.shape[:2]
+    gx = torch.clamp(g[..., 0], 0.0, gw - 1.0)
+    gy = torch.clamp(g[..., 1], 0.0, gh - 1.0)
+    x0 = torch.clamp(torch.floor(gx).long(), 0, gw - 2)
+    y0 = torch.clamp(torch.floor(gy).long(), 0, gh - 2)
+    fx = (gx - x0)[..., None]
+    fy = (gy - y0)[..., None]
+    v = lut.values
+    v00, v01 = v[y0, x0], v[y0, x0 + 1]
+    v10, v11 = v[y0 + 1, x0], v[y0 + 1, x0 + 1]
+    return (1 - fy) * ((1 - fx) * v00 + fx * v01) + fy * ((1 - fx) * v10 + fx * v11)
+
+
+def unproject_lut(cam: Camera, lut: UndistortionLUT, pix, depth):
+    """LUT-served counterpart of :func:`unproject`."""
+    return _with_depth(image_to_normalized_lut(cam, lut, pix), depth)
+
+
+# ---------------------------------------------------------------------------
+# Jacobians: forward-mode autodiff on the forward functions
+# ---------------------------------------------------------------------------
+
+
+def _point_to_image(cam: Camera, p):
+    z = p[2]
+    safe_z = torch.where(torch.abs(z) < _EPS, torch.full_like(z, _EPS), z)
+    return distorted_to_image(cam, distort(cam, p[:2] / safe_z))
+
+
+def image_jacobian_wrt_point(cam: Camera, point):
+    """d pixel / d camera-frame point, shape (...,2,3)."""
+    J = torch.func.vmap(torch.func.jacfwd(lambda p: _point_to_image(cam, p)))(
+        point.reshape(-1, 3))
+    return J.reshape(point.shape[:-1] + (2, 3))
+
+
+def image_jacobian_wrt_params(cam: Camera, point):
+    """d pixel / d camera parameters, shape (...,2,P)."""
+    jac = torch.func.jacfwd(lambda params, p: _point_to_image(cam.with_params(params), p))
+    J = torch.func.vmap(lambda p: jac(cam.params, p))(point.reshape(-1, 3))
+    return J.reshape(point.shape[:-1] + (2, cam.params.shape[0]))
 
 
 def init_cutoff(cam: Camera, border_samples: int = 64) -> Camera:

@@ -1,10 +1,18 @@
 """Batched Lie-group math (SO3 / SE3) in torch.
 
-Port of the subset of ``dataset_pipeline_tpu/models/lie.py`` that ICP uses.
+Port of the subset of ``dataset_pipeline_tpu/models/lie.py`` that ICP and the
+renderers use.
 Quaternions are ``(..., 4)`` in ``wxyz`` order, translations ``(..., 3)``;
 every function broadcasts over leading dimensions. The closed forms stay
 elementwise (no 3x3 matmuls), so results do not depend on a matmul's
 precision mode, and ``SE3.exp`` keeps Sophus's ``t = V(w) u``.
+
+Two forms of the rotation: ``quat_rotate`` is the JAX function as it runs op
+by op (outside ``jit``), ``quat_rotate_fused`` as XLA's CPU backend compiles
+it inside ``jit``, where the cross products and ``w uv + uuv`` become fused
+multiply-adds (``addcmul``). Each is bit-equal to its JAX counterpart on the
+CPU; the fused form also gives the same bits on the card (one op per kernel:
+nothing is left for a compiler to contract in its own way).
 """
 
 from __future__ import annotations
@@ -19,6 +27,36 @@ _EPS = 1e-8
 
 def _cross(a, b):
     return torch.linalg.cross(*torch.broadcast_tensors(a, b), dim=-1)
+
+
+def fms(a, b, c, d):
+    """``a*b - c*d`` as XLA's CPU backend compiles it inside ``jit``:
+    ``fma(a, b, -(c*d))``."""
+    return torch.addcmul(-(c * d), a, b)
+
+
+def dot3_fused(a, b):
+    """``sum(a * b, -1)`` over 3-vectors as XLA's CPU backend compiles it
+    inside ``jit``: the FMA chain ``fma(a2, b2, fma(a1, b1, a0 b0))``."""
+    return torch.addcmul(torch.addcmul(a[..., 0] * b[..., 0], a[..., 1], b[..., 1]),
+                         a[..., 2], b[..., 2])
+
+
+def _cross_fused(a, b):
+    """``jnp.cross`` inside ``jit``."""
+    a0, a1, a2 = torch.unbind(a, -1)
+    b0, b1, b2 = torch.unbind(b, -1)
+    return torch.stack([fms(a1, b2, a2, b1), fms(a2, b0, a0, b2), fms(a0, b1, a1, b0)], -1)
+
+
+def quat_identity(batch_shape=(), dtype=torch.float32, device=None):
+    q = torch.zeros(tuple(batch_shape) + (4,), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
+
+
+def quat_conjugate(q):
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
 
 
 def quat_normalize(q):
@@ -45,6 +83,14 @@ def quat_rotate(q, v):
     uv = _cross(qv, v)
     uuv = _cross(qv, uv)
     return v + 2.0 * (q[..., :1] * uv + uuv)
+
+
+def quat_rotate_fused(q, v):
+    """:func:`quat_rotate` as XLA compiles it inside ``jit``."""
+    qv = q[..., 1:]
+    uv = _cross_fused(qv, v)
+    uuv = _cross_fused(qv, uv)
+    return v + 2.0 * torch.addcmul(uuv, q[..., :1], uv)
 
 
 def quat_to_matrix(q):
@@ -132,6 +178,11 @@ class SE3(NamedTuple):
     t: torch.Tensor
 
     @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device=None) -> "SE3":
+        return SE3(quat_identity(batch_shape, dtype, device),
+                   torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device))
+
+    @staticmethod
     def from_matrix(m) -> "SE3":
         return SE3(quat_from_matrix(m[..., :3, :3]), m[..., :3, 3])
 
@@ -146,6 +197,14 @@ class SE3(NamedTuple):
     def apply(self, p):
         """Transform points ``(...,3)``."""
         return quat_rotate(self.q, p) + self.t
+
+    def apply_fused(self, p):
+        """:meth:`apply` as XLA compiles it inside ``jit``."""
+        return quat_rotate_fused(self.q, p) + self.t
+
+    def inverse(self) -> "SE3":
+        qinv = quat_conjugate(self.q)
+        return SE3(qinv, -quat_rotate(qinv, self.t))
 
     def compose(self, other: "SE3") -> "SE3":
         """self @ other (apply ``other`` first)."""

@@ -1,4 +1,5 @@
-"""Host kernels of the port: the grid kNN and the greedy merge.
+"""Host kernels of the port: the grid kNN, the greedy merge and the
+triangle-grid insertion.
 
 ``csrc/gridder.cc`` is the port's own copy, byte for byte, of the JAX
 package's native gridder source (a test holds the two files equal),
@@ -7,9 +8,9 @@ neighbor lists agree bit for bit with the JAX package while the port needs
 no file of it. The library lands in ``build/native/<source hash>/`` beside the package
 (ignored by git) and is reused by later processes.
 
-Only ``grid_knn`` and ``greedy_merge`` are exposed. A missing compiler
-raises: the JAX side's voxel-merge fallback gives other levels, so it is not
-ported.
+Only ``grid_knn``, ``greedy_merge`` and ``insert_triangles`` are exposed. A
+missing compiler raises: the JAX side's fallbacks (a voxel merge that gives
+other levels, a Python insertion loop) are not ported.
 """
 
 from __future__ import annotations
@@ -68,6 +69,11 @@ def get_lib() -> ctypes.CDLL:
             f32p, f32p, u8p, f32p, ctypes.c_int64, ctypes.c_float,
             ctypes.c_int32, f32p, f32p, u8p, f32p,
         ]
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+        lib.insert_triangles.restype = ctypes.c_int64
+        lib.insert_triangles.argtypes = [
+            i64p, i64p, ctypes.c_int64, i64p, ctypes.c_int32, i32p, i32p, ctypes.c_int64,
+        ]
         lib.grid_knn.restype = ctypes.c_int32
         lib.grid_knn.argtypes = [
             f32p, ctypes.c_int64, f32p, ctypes.c_int64, ctypes.c_int32,
@@ -94,6 +100,23 @@ def grid_knn(points: np.ndarray, queries: np.ndarray, k: int,
     if rc != 0:
         raise RuntimeError(f"grid_knn failed ({rc})")
     return out_d2, out_idx
+
+
+def insert_triangles(lo_cells: np.ndarray, hi_cells: np.ndarray, dims,
+                     max_per_cell: int) -> np.ndarray:
+    """Triangle ids per grid cell, in face order, -1 padded: (num_cells,
+    max_per_cell) int32 from each face's inclusive cell box ``lo``..``hi``
+    (F,3); a full cell drops later faces."""
+    lib = get_lib()
+    dims = np.ascontiguousarray(dims, np.int64)
+    num_cells = int(dims[0] * dims[1] * dims[2])
+    table = np.full((num_cells, max_per_cell), -1, np.int32)
+    counts = np.zeros(num_cells, np.int32)
+    lib.insert_triangles(
+        np.ascontiguousarray(lo_cells, np.int64), np.ascontiguousarray(hi_cells, np.int64),
+        len(lo_cells), dims, max_per_cell, table, counts, num_cells,
+    )
+    return table
 
 
 def greedy_merge(points: np.ndarray, colors: np.ndarray, scan_indices: np.ndarray,

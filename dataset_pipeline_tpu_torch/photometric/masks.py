@@ -4,8 +4,8 @@ Port of the loading half of ``dataset_pipeline_tpu/photometric/masks.py``:
 mask images live in ``<dataset>/masks_for_images/<image_folder>/<image>.png``
 (per image) and ``<dataset>/masks_for_cameras/<image_folder>.png`` (per
 camera); pixel values are bitflags (1 masks observations, 2 also masks
-evaluation). Pyramids use bitwise-OR (max) pooling. PIL is imported only
-when a mask file exists.
+evaluation: ``MASK_OBS``, ``MASK_EVAL_OBS``). Pyramids use bitwise-OR (max)
+pooling. PIL is imported only when a mask file exists.
 """
 
 from __future__ import annotations
@@ -17,6 +17,10 @@ import numpy as np
 import torch
 
 from dataset_pipeline_tpu_torch import default_device
+
+MASK_NONE = 0
+MASK_OBS = 1
+MASK_EVAL_OBS = 2
 
 
 def image_mask_path(image_base_path: str, image_name: str) -> str:

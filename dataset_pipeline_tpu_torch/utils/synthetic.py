@@ -11,6 +11,11 @@ looking along +z from near the world origin. The texture mixes wavelengths
 from 1.5 cm to 25 cm, so points ~4 mm apart (the finest level at 5 m and
 f = 2800) keep contrast for the gradient filter while the coarse levels
 give the optimizer a wide basin.
+
+For the ground-truth tools: ``surface_depth`` (the ray cast's depth at each
+pixel centre, the reference a ground-truth map is held to), ``surface_mesh``
+(a grid mesh of the surface, optionally with a rectangular hole) and
+``write_state`` (the state with other poses, e.g. the true ones).
 """
 
 from __future__ import annotations
@@ -64,13 +69,14 @@ def texture(x, y):
     return torch.clamp(t, 3.0, 250.0)
 
 
-def render(q, t, width: int, height: int, f: float, cx: float, cy: float, depth: float):
-    """Exact render of the textured surface for pose ``image_T_world``
-    (q wxyz (4,), t (3,) float64 tensors): (H, W) float32 gray values."""
+def _ray_cast(q, t, width: int, height: int, f: float, cx: float, cy: float, depth: float):
+    """Per block of image rows: (row slice, camera centre o, world ray
+    directions d with camera-frame z = 1, ray parameter s of the surface
+    hit), by Newton on g(s) = o_z + s d_z - Z(o + s d). The hit's
+    camera-frame depth is s."""
     dev = q.device
     R = quat_to_matrix(q)
     o = -(R.T @ t)  # camera center in the world
-    out = torch.empty((height, width), dtype=torch.float32, device=dev)
     u = torch.arange(width, dtype=torch.float64, device=dev)
     for r0 in range(0, height, _ROWS_PER_PASS):
         v = torch.arange(r0, min(r0 + _ROWS_PER_PASS, height), dtype=torch.float64, device=dev)
@@ -78,14 +84,66 @@ def render(q, t, width: int, height: int, f: float, cx: float, cy: float, depth:
         d_cam = torch.stack([(uu - cx) / f, (vv - cy) / f, torch.ones_like(uu)], -1)
         d = d_cam @ R  # world directions R^T d_cam
         s = (depth - o[2]) / d[..., 2]
-        for _ in range(8):  # Newton on g(s) = o_z + s d_z - Z(o + s d)
+        for _ in range(8):
             x = o[0] + s * d[..., 0]
             y = o[1] + s * d[..., 1]
             zx, zy = _surface_grad(x, y)
             g = o[2] + s * d[..., 2] - surface_height(x, y, depth)
             s = s - g / (d[..., 2] - zx * d[..., 0] - zy * d[..., 1])
-        out[r0:r0 + len(v)] = texture(o[0] + s * d[..., 0], o[1] + s * d[..., 1]).float()
+        yield slice(r0, r0 + len(v)), o, d, s
+
+
+def render(q, t, width: int, height: int, f: float, cx: float, cy: float, depth: float):
+    """Exact render of the textured surface for pose ``image_T_world``
+    (q wxyz (4,), t (3,) float64 tensors): (H, W) float32 gray values."""
+    out = torch.empty((height, width), dtype=torch.float32, device=q.device)
+    for rows, o, d, s in _ray_cast(q, t, width, height, f, cx, cy, depth):
+        out[rows] = texture(o[0] + s * d[..., 0], o[1] + s * d[..., 1]).float()
     return out
+
+
+def surface_depth(q, t, width: int, height: int, f: float, cx: float, cy: float, depth: float):
+    """Camera-frame depth (z) of the surface at every pixel centre, by the
+    ray cast of :func:`render`: (H, W) float64."""
+    out = torch.empty((height, width), dtype=torch.float64, device=q.device)
+    for rows, _, _, s in _ray_cast(q, t, width, height, f, cx, cy, depth):
+        out[rows] = s
+    return out
+
+
+def surface_mesh(half_w: float, half_h: float, spacing: float, depth: float, hole=None):
+    """Grid mesh of the height field over [-half_w, half_w] x [-half_h, half_h]
+    with vertices on the surface every ``spacing`` m: (vertices (V,3)
+    float32, faces (F,3) int32), two triangles per cell. ``hole`` = (x0, x1,
+    y0, y1) leaves out the cells whose centre lies in that rectangle."""
+    xs = np.arange(-half_w, half_w + 0.5 * spacing, spacing)
+    ys = np.arange(-half_h, half_h + 0.5 * spacing, spacing)
+    gx, gy = np.meshgrid(xs, ys)
+    gz = surface_height(torch.from_numpy(gx), torch.from_numpy(gy), depth).numpy()
+    verts = np.stack([gx, gy, gz], -1).reshape(-1, 3).astype(np.float32)
+    nx, ny = len(xs), len(ys)
+    j, i = np.meshgrid(np.arange(ny - 1), np.arange(nx - 1), indexing="ij")
+    v = (j * nx + i).ravel()
+    keep = np.ones(v.shape, bool)
+    if hole is not None:
+        cx, cy = (xs[i] + 0.5 * spacing).ravel(), (ys[j] + 0.5 * spacing).ravel()
+        x0, x1, y0, y1 = hole
+        keep = ~((cx >= x0) & (cx <= x1) & (cy >= y0) & (cy <= y1))
+    v = v[keep]
+    faces = np.concatenate([np.stack([v, v + 1, v + nx], -1),
+                            np.stack([v + 1, v + nx + 1, v + nx], -1)])
+    return verts, faces.astype(np.int32)
+
+
+def write_state(folder: str, q, t) -> None:
+    """A copy of the COLMAP state beside ``folder`` (``<root>/state``) with
+    the image poses replaced by ``q`` (B,4), ``t`` (B,3): e.g. the true poses
+    that :func:`write_scene` returns, written to ``folder``."""
+    model = cio.read_model(os.path.join(os.path.dirname(folder), "state"))
+    for i, iid in enumerate(sorted(model.images)):
+        model.images[iid].qvec = np.asarray(q[i], np.float64)
+        model.images[iid].tvec = np.asarray(t[i], np.float64)
+    cio.write_model(folder, model)
 
 
 def true_poses(n_images: int, baseline: float, seed: int, device=None) -> SE3:

@@ -129,3 +129,122 @@ def test_project_differentiates_through_params():
     tj = torch.func.jacfwd(lambda p: tcm.project(tc.with_params(p), torch.from_numpy(pts))[0])(
         tc.params).numpy()
     np.testing.assert_allclose(tj, jj, rtol=1e-5, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# The inverse half: undistortion, unprojection, the lookup table, Jacobians.
+# Tolerances: normalized coordinates 2e-6 absolute (the 100-step Gauss-Newton
+# stops per point at a residual of 1e-10 squared; either side may stop one
+# step apart); the round trips those of ``tests/test_cameras.py``: pixels
+# 2e-2 px, normalized coordinates 1e-4 (held here at 1e-5); Jacobians 1e-5
+# relative + 1e-3 absolute (forward-mode derivatives of the same formulas,
+# fused differently).
+# ---------------------------------------------------------------------------
+
+N_TOL = 2e-6
+
+
+def _pixels(w=W, h=H):
+    xs = np.array([10.0, 100.0, 320.0, 550.0, 630.0]) * w / W
+    ys = np.array([10.0, 120.0, 240.0, 400.0, 470.0]) * h / H
+    gx, gy = np.meshgrid(xs, ys)
+    return np.stack([gx.ravel(), gy.ravel()], -1).astype(np.float32)
+
+
+@pytest.mark.parametrize("model", sorted(MILD))
+def test_undistort_and_unproject_match_jax(model):
+    # the cutoff plays no part in the inverse path, and the round trip below
+    # stays inside the image: both cameras skip it
+    jc = jcm.make_camera(model, W, H, MILD[model], cutoff=False)
+    tc = tcm.make_camera(model, W, H, MILD[model], cutoff=False, device="cpu")
+    pix = _pixels()
+    rng = np.random.RandomState(4)
+    n = rng.uniform(-0.45, 0.45, (64, 2)).astype(np.float32)
+    jd = np.asarray(jcm.distort(jc, jnp.asarray(n)))
+    np.testing.assert_allclose(tcm.distort(tc, torch.from_numpy(n)).numpy(), jd, atol=1e-6)
+    # one undistortion per side on all inputs (one JAX compile): the pixels'
+    # distorted coordinates, jd, and the port's own distort(n) for its round trip
+    dist = np.asarray(jcm.image_to_distorted(jc, jnp.asarray(pix)))
+    ju = np.asarray(jcm.undistort(jc, jnp.asarray(np.concatenate([dist, jd]))))
+    jn, jun = ju[:len(pix)], ju[len(pix):]
+    tu = tcm.undistort(tc, torch.cat([tcm.image_to_distorted(tc, torch.from_numpy(pix)),
+                                      torch.from_numpy(jd), tcm.distort(tc, torch.from_numpy(n))]))
+    tn, tun, n2 = (x.numpy() for x in torch.split(tu, [len(pix), len(jd), len(n)]))
+    ok = np.isfinite(jn).all(1)
+    assert ok.mean() > 0.9
+    np.testing.assert_array_equal(np.isfinite(tn).all(1), ok)
+    np.testing.assert_allclose(tn[ok], jn[ok], atol=N_TOL)
+    np.testing.assert_allclose(tun, jun, atol=N_TOL)
+    np.testing.assert_allclose(n2, n, atol=1e-5)  # distort -> undistort round trip
+    depth = rng.uniform(0.5, 5.0, len(pix)).astype(np.float32)
+    jp = np.concatenate([jn * depth[:, None], depth[:, None]], 1)  # jcm.unproject's formula
+    tp = tcm.unproject(tc, torch.from_numpy(pix), torch.from_numpy(depth)).numpy()
+    np.testing.assert_allclose(tp[ok], jp[ok], atol=N_TOL * 5.0)
+    # round trip through the port's own projection
+    pix2 = tcm.normalized_to_image(tc, torch.from_numpy(tn)).numpy()
+    fin = np.isfinite(pix2).all(1)
+    assert fin.mean() > 0.9
+    np.testing.assert_allclose(pix2[fin], pix[fin], atol=2e-2)
+
+
+def test_undistortion_lut_matches_jax():
+    params = [100.0, 100.0, 63.5, 47.5, 0.2, -0.05, 0.001, -0.002]
+    jc = jcm.make_camera("OPENCV", 128, 96, params)
+    tc = tcm.make_camera("OPENCV", 128, 96, params, device="cpu")
+    for step in (1.0, 2.5):
+        jl, tl = jcm.build_undistortion_lut(jc, step), tcm.build_undistortion_lut(tc, step)
+        assert tl.values.shape == jl.values.shape and tl.step == jl.step
+        # k1 = 0.2: near the corners the two Gauss-Newton runs stop up to 9e-6 apart
+        np.testing.assert_allclose(tl.values.numpy(), np.asarray(jl.values), atol=1e-5)
+    rng = np.random.RandomState(0)
+    pix = np.stack([rng.uniform(-2, 130, 500), rng.uniform(-2, 98, 500)], -1).astype(np.float32)
+    d = rng.uniform(1.0, 5.0, 500).astype(np.float32)
+    np.testing.assert_allclose(
+        tcm.image_to_normalized_lut(tc, tl, torch.from_numpy(pix)).numpy(),
+        np.asarray(jcm.image_to_normalized_lut(jc, jl, jnp.asarray(pix))), atol=1e-5)
+    tp = tcm.unproject_lut(tc, tl, torch.from_numpy(pix), torch.from_numpy(d))
+    np.testing.assert_allclose(
+        tp.numpy(), np.asarray(jcm.unproject_lut(jc, jl, jnp.asarray(pix), jnp.asarray(d))),
+        atol=5e-5)
+    # the LUT serves the iterative undistortion's values between nodes
+    ref = tcm.image_to_normalized(tc, torch.from_numpy(pix[(pix[:, 0] > 2) & (pix[:, 1] > 2)
+                                                          & (pix[:, 0] < 125) & (pix[:, 1] < 93)]))
+    lut1 = tcm.build_undistortion_lut(tc)
+    sel = (pix[:, 0] > 2) & (pix[:, 1] > 2) & (pix[:, 0] < 125) & (pix[:, 1] < 93)
+    np.testing.assert_allclose(tcm.image_to_normalized_lut(tc, lut1, torch.from_numpy(pix[sel])),
+                               ref, atol=2e-5)
+
+
+@pytest.mark.parametrize("model", sorted(MILD))
+def test_image_jacobians_match_jax(model):
+    # the Jacobians do not read the cutoff
+    jc = jcm.make_camera(model, W, H, MILD[model], cutoff=False)
+    tc = tcm.make_camera(model, W, H, MILD[model], cutoff=False, device="cpu")
+    pts = np.asarray([[0.1, -0.05, 1.2], [0.4, 0.3, 2.0], [-0.2, 0.25, 0.8],
+                      [0.0, 0.0, 1.0]], np.float32).reshape(2, 2, 3)
+    jp = np.asarray(jcm.image_jacobian_wrt_point(jc, jnp.asarray(pts)))
+    tp = tcm.image_jacobian_wrt_point(tc, torch.from_numpy(pts)).numpy()
+    assert tp.shape == (2, 2, 2, 3)
+    np.testing.assert_allclose(tp, jp, rtol=1e-5, atol=1e-3)
+    jq = np.asarray(jcm.image_jacobian_wrt_params(jc, jnp.asarray(pts)))
+    tq = tcm.image_jacobian_wrt_params(tc, torch.from_numpy(pts)).numpy()
+    assert tq.shape == (2, 2, 2, len(MILD[model]))
+    np.testing.assert_allclose(tq, jq, rtol=1e-5, atol=1e-3)
+
+
+def test_project_fused_matches_jax_inside_jit():
+    """``project(..., fused=True)`` is the JAX function inside ``jit``, bit
+    for bit for the models without distortion."""
+    import jax
+
+    rng = np.random.RandomState(12)
+    pts = np.concatenate([rng.uniform(-2, 2, (3000, 2)), rng.uniform(0.5, 4, (3000, 1))],
+                         1).astype(np.float32)
+    for model in ("PINHOLE", "SIMPLE_PINHOLE"):
+        jc = jcm.make_camera(model, W, H, MILD[model])
+        tc = tcm.make_camera(model, W, H, MILD[model], device="cpu")
+        jpix = np.asarray(jax.jit(lambda p: jcm.project(jc, p)[0])(jnp.asarray(pts)))
+        np.testing.assert_array_equal(tcm.project(tc, torch.from_numpy(pts), fused=True)[0].numpy(),
+                                      jpix)
+        np.testing.assert_array_equal(tcm.project(tc, torch.from_numpy(pts))[0].numpy(),
+                                      np.asarray(jcm.project(jc, jnp.asarray(pts))[0]))

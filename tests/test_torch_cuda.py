@@ -472,3 +472,151 @@ def test_brick_path_matches_flat_sampler_on_the_card(cuda_device, L):
         assert torch.equal(got[-1], ok)
         for g, r in zip(got[:-1], ref[:-1]):
             np.testing.assert_allclose(g[ok].cpu().numpy(), r[b][ok].cpu().numpy(), rtol=0, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# Slice 3 (ground truth and rendering): no hand-written kernel, plain torch on
+# the card held against the same functions on the CPU, bit for bit (one op
+# per kernel, the fused forms written as addcmul; a min, an OR or a
+# last-writer key do not depend on the order of writes).
+# ---------------------------------------------------------------------------
+
+
+def _both(fn, *args):
+    """fn on the card and on the CPU; tensors in ``args`` go to each device."""
+    def on(dev):
+        out = fn(*(a.to(dev) if torch.is_tensor(a) else a for a in args))
+        return tuple(o.cpu() for o in out) if isinstance(out, tuple) else out.cpu()
+    return on("cuda"), on("cpu")
+
+
+def _assert_same(a, b):
+    for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+        np.testing.assert_array_equal(x.numpy(), y.numpy())
+
+
+@pytest.mark.cuda
+def test_zbuffer_and_point_renders_match_cpu(cuda_device):
+    from dataset_pipeline_tpu_torch.ops import splat
+
+    rng = np.random.RandomState(60)
+    n_px, n = 50_000, 400_000
+    flat = torch.from_numpy(rng.randint(-100, n_px + 100, n))
+    z = torch.from_numpy(rng.randint(0, 50, n).astype(np.float32))  # z-ties
+    aux = torch.from_numpy(rng.randint(0, 1 << 24, n).astype(np.int32))
+    _assert_same(*_both(lambda f, zz, a: splat.zbuffer_min(f, zz, n_px, aux=a), flat, z, aux))
+    xy = rng.uniform(-1.2, 1.2, (2, 300_000, 2))
+    zc = rng.uniform(-0.2, 3.0, (2, 300_000, 1))
+    pts = torch.from_numpy(np.concatenate([xy * np.abs(zc), zc], -1).astype(np.float32))
+    cols = torch.from_numpy(rng.randint(0, 256, (300_000, 3)).astype(np.uint8))
+    _assert_same(*_both(lambda p, c: splat.render_points_depth_color(p, c, 320, 240, 150.0, 151.0,
+                                                                     160, 119.5), pts, cols))
+
+
+@pytest.mark.cuda
+def test_fills_match_cpu(cuda_device):
+    from dataset_pipeline_tpu_torch.ops import splat
+
+    rng = np.random.RandomState(61)
+    depth = rng.uniform(1.0, 5.0, (3, 200, 260)).astype(np.float32)
+    depth[rng.rand(3, 200, 260) < np.linspace(0.1, 0.97, 200)[:, None]] = np.inf
+    depth[2] = np.inf  # no seed
+    color = rng.randint(0, 256, (3, 200, 260, 3)).astype(np.uint8)
+    d, c = torch.from_numpy(depth), torch.from_numpy(color)
+    _assert_same(*_both(splat.fill_depth_holes, d))
+    filled = _both(splat.fill_color_from_depth, d, c)
+    _assert_same(*filled)
+    _assert_same(*_both(splat.flood_fill_colors, *filled[1]))
+
+
+def _mesh_scene():
+    from dataset_pipeline_tpu_torch.models import cameras as cm
+    from dataset_pipeline_tpu_torch.utils import synthetic
+
+    cam = cm.make_camera("PINHOLE", 320, 240, [260.0, 260.0, 159.5, 119.5], device="cpu")
+    verts, faces = synthetic.surface_mesh(3.0, 2.3, 0.05, 5.0, hole=(-0.5, 0.3, -0.4, 0.2))
+    # a foreground patch for silhouettes and an edge of large triangles (32-px tier)
+    fg, ff = synthetic.surface_mesh(0.4, 0.3, 0.1, 3.5)
+    big, bf = synthetic.surface_mesh(1.5, 1.0, 0.5, 4.0)
+    v = np.concatenate([verts, fg, big])
+    f = np.concatenate([faces, ff + len(verts), bf + len(verts) + len(fg)])
+    return cam, v, f
+
+
+@pytest.mark.cuda
+def test_mesh_occlusion_depth_with_edge_splats_matches_cpu(cuda_device):
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+    from dataset_pipeline_tpu_torch.ops import mesh_raster as mr
+
+    cam, v, f = _mesh_scene()
+    q = torch.tensor([0.9999, 0.01, -0.008, 0.005])
+    pose = SE3(q / torch.linalg.vector_norm(q), torch.tensor([0.03, -0.02, 0.1]))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = mr.build_occlusion_mesh(v, f, device=dev)
+        out[dev] = mr.render_occlusion_mesh_depth(cam.to(dev), SE3(pose.q.to(dev), pose.t.to(dev)),
+                                                  mesh, splat_radius=0.03).cpu()
+    np.testing.assert_array_equal(out["cuda"].numpy(), out["cpu"].numpy())
+    assert (out["cpu"] == -1).sum() > 100 and (out["cpu"] > 0).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_mesh_color_with_duplicate_faces_matches_cpu(cuda_device):
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+    from dataset_pipeline_tpu_torch.ops import mesh_raster as mr
+
+    cam, v, f = _mesh_scene()
+    v3 = np.concatenate([v, v, v])
+    f3 = np.concatenate([f, f + len(v), f + 2 * len(v)])  # coplanar duplicates
+    cols = np.random.RandomState(62).uniform(0, 255, (len(v3), 3)).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mesh = mr.build_occlusion_mesh(v3, f3, device=dev)
+        out[dev] = tuple(x.cpu() for x in mr.render_mesh_depth_color(
+            cam.to(dev), SE3.identity(device=dev), mesh, torch.from_numpy(cols).to(dev)))
+    _assert_same(out["cuda"], out["cpu"])
+
+
+@pytest.mark.cuda
+def test_min_dist_sq_within_matches_cpu(cuda_device):
+    from dataset_pipeline_tpu_torch.ops import tridist
+    from dataset_pipeline_tpu_torch.utils import synthetic
+
+    verts, faces = synthetic.surface_mesh(1.0, 1.0, 0.02, 5.0, hole=(-0.3, 0.3, -0.3, 0.3))
+    rng = np.random.RandomState(63)
+    q = np.concatenate([rng.uniform(-1.1, 1.1, (200_000, 2)), rng.uniform(4.9, 5.1, (200_000, 1))],
+                       1).astype(np.float32)
+    out = {}
+    for dev, chunk in (("cuda", 1 << 17), ("cpu", 8192)):
+        grid = tridist.build_triangle_grid(verts, faces, 0.03, device=dev)
+        out[dev] = tridist.min_dist_sq_within(grid, torch.from_numpy(q).to(dev), chunk=chunk).cpu()
+    np.testing.assert_array_equal(out["cuda"].numpy(), out["cpu"].numpy())
+    assert torch.isinf(out["cpu"]).any() and torch.isfinite(out["cpu"]).float().mean() > 0.3
+
+
+@pytest.mark.cuda
+def test_ground_truth_creator_matches_cpu(cuda_device, tmp_path):
+    from dataset_pipeline_tpu_torch.io.ply import PointCloud, write_ply
+    from dataset_pipeline_tpu_torch.tools import ground_truth_creator as gt
+    from dataset_pipeline_tpu_torch.utils import synthetic
+
+    root = str(tmp_path)
+    tq, tt = synthetic.write_scene(root, 160, 120, 140.0, 3, 40_000, seed=4, device="cpu")
+    synthetic.write_state(f"{root}/state_true", tq, tt)
+    hw, hh = synthetic.scan_extent(160, 120, 140.0, 3, synthetic.DEPTH, 0.15)
+    verts, faces = synthetic.surface_mesh(hw, hh, 0.05, synthetic.DEPTH)
+    write_ply(f"{root}/mesh.ply", PointCloud(verts, faces=faces))
+    for extra in ([], ["--occlusion_mesh_path", f"{root}/mesh.ply"]):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            outs[dev] = f"{root}/out_{dev}_{len(extra)}"
+            assert gt.main(["--scan_alignment_path", f"{root}/scene.mlp", "--state_path",
+                            f"{root}/state_true", "--output_folder_path", outs[dev],
+                            "--write_occlusion_depth", "1", "--device", dev, *extra]) == 0
+        for sub in ("ground_truth_depth", "occlusion_depth"):
+            for name in ("img000.pgm", "img001.pgm", "img002.pgm"):
+                a = np.fromfile(f"{outs['cuda']}/{sub}/{name}", np.float32)
+                b = np.fromfile(f"{outs['cpu']}/{sub}/{name}", np.float32)
+                np.testing.assert_array_equal(a, b)
+        with open(f"{outs['cuda']}/scan_alignment.mlp") as a, open(f"{outs['cpu']}/scan_alignment.mlp") as b:
+            assert a.read() == b.read()
