@@ -73,6 +73,25 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   ``scatter_reduce_`` and of the raster tiers in one image's and one face's
   device time.
 
+- Slice 4, the cleaner and the rest of the registrator (B3 the only kernel):
+  (a) ``tools.point_cloud_cleaner`` on the DSLR scan with 1 % planted points
+  hovering over it, the ETH3D recipe ``--filter 270,1.15 --filter 20,1.15``
+  (the first filter keeps > 97 % of the surface and < 50 % of the planted
+  points), then ``ops.outlier._outliers_from_adaptive_knn`` on the card for
+  the first filter (its mask agrees with the host kNN's at >= 99.9 % of the
+  points; its grid stays under 2^31 cells); (b) the DSLR configuration twice
+  with the cloud cache that the main DSLR run wrote and
+  ``--cache_observations`` (scale 0.5 then 1): neither run rebuilds the cloud
+  or the neighbours, the second loads the first's observations cache, the two
+  end within the pose limit, and the cache's hit rate is measured after the
+  third iteration; the depth residuals through the optimizer's API (depth
+  maps ray cast at the true poses); (d) ``--occlusion_mesh_path`` with the
+  ground-truth phase's 1 cm mesh; (c) the 16 images as 8 sets of a two-camera
+  rig (``rigs.json``) from perturbed poses. Each lowers the cost (and the
+  pose error), launches B3, and B3 is held against its plain version at the
+  inputs of the first launch on the views, in the depth core and in the rig
+  core.
+
 It fails (non-zero exit, no result line) if CUDA is absent, a kernel does
 not build, launch or agree, a path did not launch each of its kernels, the
 LM ladders launch B1 more than twice per iteration, the
@@ -80,7 +99,7 @@ alignment does not remove the initial offset, the registration does not
 lower the cost and the pose error, the engines of the A/B end at different
 poses, the repeat slope and the event time of the moment pass disagree, the
 read bandwidth or a probe's rate comes out above the card's stated peak, the
-brick path and B3 disagree, or a check of the ground-truth phase misses. The last line is
+brick path and B3 disagree, or a check of the ground-truth or slice-4 phase misses. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and the one before that the per-kernel JSON.
 """
@@ -1489,7 +1508,8 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
     try:
         rc = image_registrator.main(registrator_args(
             root, out, "cuda", ["--initial_scaling_factor", "1", "--target_scaling_factor", "1",
-                                "--merge_distance_factor", str(c["merge_distance_factor"])]),
+                                "--merge_distance_factor", str(c["merge_distance_factor"]),
+                                "--multi_res_point_cloud_directory_path", os.path.join(root, "cache")]),
             timings=timings, stats=stats)
         torch.cuda.synchronize()
     finally:
@@ -1990,6 +2010,382 @@ def run_small_cuda_vs_cpu(torch, synthetic, root: str):
     return n_diff
 
 
+# ---------------------------------------------------------------------------
+# Slice 4: the cleaner and the rest of the registrator (B3 on the rig, depth
+# and observations-cache paths)
+# ---------------------------------------------------------------------------
+
+CLEAN_FILTERS = ("270,1.15", "20,1.15")  # the ETH3D recipe (reference README.md:372)
+CLEAN_PLANTED = 0.01  # share of planted points, hovering 4-12 point spacings over the surface
+CLEAN_SURFACE_KEPT, CLEAN_PLANTED_KEPT = 0.97, 0.5  # first filter, as tests/test_knn.py:196
+CLEAN_AGREE = 0.999  # the card's adaptive-kNN mask against the host kNN's, first filter
+CLEAN_POINTS = None  # None: the whole DSLR scan; else a cut to this many surface points
+RIG_DSLR = (-0.2, 0.0, 0.0, 0.0, 0.004, 0.0)  # second camera one baseline to the right, turned 4 mrad
+OBS_CHECK_INTERVAL = 3  # the cache's hit rate is measured after the third iteration
+
+
+class CaptureB3:
+    """For one run: keep (on the host) the inputs of the first derivs-mode B3
+    launch made inside ``optimizer.<core>`` for which ``want(args)`` holds."""
+
+    def __init__(self, optimizer, core: str, want=lambda args: True):
+        self.opt, self.core, self.want = optimizer, core, want
+        self.cap, self.inside = {}, False
+
+    def __enter__(self):
+        sample, core = self.opt.pyramid_sample, getattr(self.opt, self.core)
+        self.saved = (sample, core)
+
+        def sampler(flat, layout, pix, scale, with_derivs=True, **kw):
+            if self.inside and with_derivs and not self.cap:
+                self.cap.update(flat=flat.cpu(), layout=layout, pix=pix.cpu(), scale=scale.cpu())
+            return sample(flat, layout, pix, scale, with_derivs, **kw)
+
+        def wrapped(*args, **kw):
+            self.inside = self.want(args)
+            try:
+                return core(*args, **kw)
+            finally:
+                self.inside = False
+
+        self.opt.pyramid_sample = sampler
+        setattr(self.opt, self.core, wrapped)
+        return self.cap
+
+    def __exit__(self, *exc):
+        self.opt.pyramid_sample, core = self.saved
+        setattr(self.opt, self.core, core)
+
+
+def b3_launches(kernels):
+    return {k: kernels.LAUNCHES[k] for k in REG_KERNELS}
+
+
+def read_timing(out: str) -> dict:
+    return {k: v["total_s"] for k, v in json.load(open(os.path.join(out, "timing.json"))).items()}
+
+
+def run_cleaner_dslr(torch, root: str):
+    """(a) PointCloudCleaner on the DSLR scan with 1 % planted points, the
+    ETH3D recipe on the card (the host kNN above 200,000 points); then the
+    card's adaptive kNN filter on the same points for the first filter."""
+    from dataset_pipeline_tpu_torch.io.ply import PointCloud, read_ply, write_ply
+    from dataset_pipeline_tpu_torch.ops import outlier
+    from dataset_pipeline_tpu_torch.tools import point_cloud_cleaner
+    from dataset_pipeline_tpu_torch.utils import synthetic
+
+    c = synthetic.DSLR
+    t0 = time.perf_counter()
+    scan = read_ply(os.path.join(root, "scan.ply"))
+    surf, cols = scan.positions, scan.colors
+    if CLEAN_POINTS is not None:
+        surf, cols = surf[:CLEAN_POINTS], cols[:CLEAN_POINTS]
+    n = len(surf)
+    half_w, half_h = synthetic.scan_extent(c["width"], c["height"], c["f"], c["n_images"],
+                                           synthetic.DEPTH, c["baseline"])
+    rng = np.random.RandomState(13)
+    m = int(CLEAN_PLANTED * n)
+    x = torch.from_numpy((rng.rand(m) * 2 - 1) * half_w)
+    y = torch.from_numpy((rng.rand(m) * 2 - 1) * half_h)
+    gap = rng.uniform(4, 12, m) / np.sqrt(c["scan_density"])  # 4-12 point spacings toward the cameras
+    planted = torch.stack([x, y, synthetic.surface_height(x, y, synthetic.DEPTH)
+                           - torch.from_numpy(gap)], -1).float().numpy()
+    pts = np.concatenate([surf, planted])
+    os.makedirs(os.path.join(root, "clean"), exist_ok=True)
+    path = os.path.join(root, "clean", "scan.ply")
+    write_ply(path, PointCloud(pts, None, np.concatenate([cols, np.zeros((m, 3), np.uint8)])))
+    print(f"cleaner input: {n} surface + {m} planted points written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    masks, timings = [], {}
+    remove = point_cloud_cleaner.remove_outliers
+
+    def keep_masks(*a, **kw):
+        return remove(*a, masks=masks, **kw)
+
+    point_cloud_cleaner.remove_outliers = keep_masks  # for this run only
+    t0 = time.perf_counter()
+    try:
+        rc = point_cloud_cleaner.main(["--in", path, *[x for f in CLEAN_FILTERS for x in ("--filter", f)],
+                                       "--device", "cuda"], timings=timings)
+        torch.cuda.synchronize()
+    finally:
+        point_cloud_cleaner.remove_outliers = remove
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"point_cloud_cleaner returned {rc}")
+    first, final = masks[0], masks[-1]
+    kept = [(float(mk[:n].mean()), float(mk[n:].mean())) for mk in (first, final)]
+    inl = read_ply(os.path.join(root, "clean", "scan.inliers.ply"))
+    print(stage_line("cleaner (host kNN, filter on the card)", timings) + f"; wall {wall:.3f} s; "
+          f"first filter keeps {kept[0][0]:.5f} of the surface, {kept[0][1]:.5f} of the planted "
+          f"points; both filters {kept[1][0]:.5f} / {kept[1][1]:.5f}; {len(inl)} inliers written")
+    if len(inl) != int(final.sum()):
+        fail("cleaner: the inliers file does not hold the mask's points")
+    if not (kept[0][0] > CLEAN_SURFACE_KEPT and kept[0][1] < CLEAN_PLANTED_KEPT):
+        fail(f"cleaner: the first filter kept {kept[0]} (surface > {CLEAN_SURFACE_KEPT}, "
+             f"planted < {CLEAN_PLANTED_KEPT} required)")
+    if not kept[1][1] < CLEAN_PLANTED_KEPT:
+        fail(f"cleaner: the recipe kept {kept[1][1]:.4f} of the planted points")
+    del inl
+    # the first filter again, through the card's exact adaptive kNN
+    k, factor = (float(v) for v in CLEAN_FILTERS[0].split(","))
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    dev_pts = torch.from_numpy(pts).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = outlier._outliers_from_adaptive_knn(dev_pts, int(k), factor, stats=stats)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    card = card.cpu().numpy()
+    differ = int((card != first).sum())
+    agree = 1.0 - differ / len(pts)
+    print(f"cleaner: the card's adaptive kNN (k = {int(k) + 1}) and filter {card_s:.3f} s "
+          f"(cell {stats['cell']:.4g} m, cap {stats['cap']}, {stats['grid_cells']} grid cells, "
+          f"grid repairs {stats['grid_repairs']}, brute-force repairs {stats['bruteforce_repairs']}; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) against the "
+          f"host kNN's {timings.get('knn_host', float('nan')):.3f} s; masks differ at {differ} of "
+          f"{len(pts)} points (agree {agree:.6f})")
+    if not stats["grid_cells"] < 2 ** 31:
+        fail(f"cleaner: {stats['grid_cells']} grid cells reach the int32 cell-id limit")
+    if agree < CLEAN_AGREE:
+        fail(f"cleaner: the card's mask agrees with the host path's at {agree:.6f} < {CLEAN_AGREE}")
+    return {"points": len(pts), "planted": m, "wall_s": wall, "stages": timings, "kept": kept,
+            "card_knn_filter_s": card_s, "card_knn": stats, "masks_differ": differ}
+
+
+def run_registrator_caches(torch, kernels, image_registrator, optimizer, cio, root: str, cache: str):
+    """(b) The DSLR configuration twice with both caches (the cloud cache that
+    the main DSLR run wrote, the observations cache after the first scale):
+    scale 0.5 then 1, three iterations each; the second run loads the
+    observations cache the first wrote. B3 is kept at the first derivs
+    launch on the views."""
+    c_merge = ["--merge_distance_factor", "3.0"]
+    make = image_registrator.make_optimizer
+    outs, caps, res = [], [], {}
+
+    def checked_often(*a, **kw):
+        opt = make(*a, **kw)
+        opt.obs_cache_check_interval = OBS_CHECK_INTERVAL
+        return opt
+
+    image_registrator.make_optimizer = checked_often
+    try:
+        for run in (1, 2):
+            out = os.path.join(root, f"out_cache{run}")
+            kernels.reset_launch_counts()
+            stats = {}
+            t0 = time.perf_counter()
+            with CaptureB3(optimizer, "_hb_batch", lambda a: a[4].dim() == 3) as cap:
+                rc = image_registrator.main(registrator_args(
+                    root, out, "cuda", ["--initial_scaling_factor", "0.5", "--target_scaling_factor", "1",
+                                        *c_merge, "--multi_res_point_cloud_directory_path", cache,
+                                        "--cache_observations"]), stats=stats)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                fail(f"registrator with both caches (run {run}) returned {rc}")
+            tj = read_timing(out)
+            launches = b3_launches(kernels)
+            hit = [sc["obs_cache_hit_log"] for sc in stats["scales"]]
+            meta = dict(ln.split(" ", 1) for ln in open(os.path.join(
+                out, "scale_1_state", "metadata.txt")).read().splitlines())
+            print(f"DSLR with both caches, run {run}: wall {wall:.3f} s; stages "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in tj.items())
+                  + f"; costs {[sc['iteration_costs'] for sc in stats['scales']]}; cache hit rates "
+                  f"{hit} (metadata {meta.get('obs_cache_hit_rate')}); launches {launches}")
+            if {"build_multiscale_cloud", "determine_point_neighbors"} & set(tj):
+                fail(f"run {run} with the cloud cache rebuilt the cloud or the neighbours")
+            if any(v <= 0 for v in launches.values()):
+                fail(f"the observations-cache run {run} never launched a B3 kernel: {launches}")
+            if not cap:
+                fail(f"run {run}: no B3 derivs launch on the observations cache's views")
+            if "obs_cache_hit_rate" not in meta:
+                fail("the scale run on the cache wrote no obs_cache_hit_rate")
+            for sc in stats["scales"]:
+                if not sc["optimum_cost"] < sc["iteration_costs"][0]:
+                    fail(f"run {run}: a scale's optimum is not below its first cost")
+            outs.append(out)
+            caps.append(dict(cap))
+            res[f"run{run}"] = {"wall_s": wall, "stages": tj, "launches": launches, "hit_rates": hit}
+    finally:
+        image_registrator.make_optimizer = make
+    scales, (dq, dt, dp, dc), _ = compare_registrator_states(outs[0], outs[1],
+                                                             os.path.join(root, "state"), cio)
+    print(f"DSLR with both caches: run 1 vs run 2 ({scales}) qvec {dq:.3e} tvec {dt:.3e} params "
+          f"{dp:.3e} px, optimum cost rel {dc:.3e}")
+    if not (dq <= REG_Q_TOL and dt <= REG_T_TOL and dp <= REG_PARAM_TOL and dc <= REG_COST_RTOL):
+        fail("DSLR with both caches: the run that loaded the caches ended elsewhere")
+    res["gaps"] = [dq, dt, dp, dc]
+    return res, caps[1]
+
+
+def run_registrator_rig(torch, kernels, image_registrator, optimizer, synthetic, cio,
+                        quat_to_matrix_np, root: str, cache: str):
+    """(c) The DSLR scene's 16 images as 8 synchronised sets of a two-camera
+    rig (``rigs.json``), from perturbed poses, at scale 0 with the cloud
+    cache: the rig core's first derivs launch is kept."""
+    c = synthetic.DSLR
+    t0 = time.perf_counter()
+    n, tq, tt = synthetic.write_scene_at_density(
+        root, c["width"], c["height"], c["f"], c["n_images"], c["baseline"], c["scan_density"],
+        seed=5, device="cuda", rig=list(RIG_DSLR))
+    print(f"rig scene: {c['n_images'] // 2} sets of a two-camera rig, scan {n} points, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    before = pose_errors(os.path.join(root, "state"), tq, tt, cio, quat_to_matrix_np)
+    out = os.path.join(root, "out")
+    kernels.reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    with CaptureB3(optimizer, "_hb_rig_batch") as cap:
+        rc = image_registrator.main(registrator_args(
+            root, out, "cuda", ["--initial_scaling_factor", "1", "--target_scaling_factor", "1",
+                                "--merge_distance_factor", str(c["merge_distance_factor"]),
+                                "--multi_res_point_cloud_directory_path", cache]), stats=stats)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"rig registrator returned {rc}")
+    launches = b3_launches(kernels)
+    after = pose_errors(os.path.join(out, "scale_1_state"), tq, tt, cio, quat_to_matrix_np)
+    sc = stats["scales"][-1]
+    print(f"rig DSLR: wall {wall:.3f} s; stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in read_timing(out).items())
+          + f"; costs {sc['iteration_costs']} -> optimum {sc['optimum_cost']:.6f}; pose error "
+          f"(mm at 5 m) mean {1e3 * before.mean():.3f} -> {1e3 * after.mean():.3f}; launches {launches}")
+    if not os.path.exists(os.path.join(out, "scale_1_state", "rigs.json")):
+        fail("rig registrator: no rigs.json beside the exported state")
+    if not (sc["optimum_cost"] < sc["iteration_costs"][0] and after.mean() < before.mean()):
+        fail("rig registrator: the cost or the pose error did not go down")
+    if any(v <= 0 for v in launches.values()) or not cap:
+        fail(f"rig registrator: B3 launches {launches}, rig-core launch kept {bool(cap)}")
+    return {"wall_s": wall, "launches": launches, "pose_error_mm": [1e3 * before.mean(),
+                                                                    1e3 * after.mean()],
+            "costs": sc["iteration_costs"], "optimum": sc["optimum_cost"]}, dict(cap)
+
+
+def run_registrator_depth(torch, kernels, image_registrator, optimizer, synthetic, root: str,
+                          cache: str, truth):
+    """The depth residuals through the optimizer's API (the CLI gives the
+    optimizer no depth maps): the DSLR problem from the cloud cache, depth
+    maps ray cast at the true poses, fixed colours and depth weight 1, three
+    iterations at scale 0; the depth core's first derivs launch is kept."""
+    from dataset_pipeline_tpu_torch.photometric.problem import build_image_pyramid
+    from dataset_pipeline_tpu_torch.utils.timing import StageTimer
+
+    c = synthetic.DSLR
+    args, params = image_registrator.parse_args(registrator_args(
+        root, os.path.join(root, "out_depth"), "cuda",
+        ["--depth_residuals_weight", "1", "--multi_res_point_cloud_directory_path", cache]))
+    t0 = time.perf_counter()
+    problem, _, _, _ = image_registrator.build_problem(args, params, torch.device("cuda"),
+                                                       StageTimer(torch.device("cuda")))
+    cx, cy = (c["width"] - 1) / 2.0, (c["height"] - 1) / 2.0
+    depth_pyramids = []
+    for g in problem.groups:
+        maps = np.stack([synthetic.surface_depth(
+            torch.as_tensor(truth[0][iid - 1], device="cuda"), torch.as_tensor(truth[1][iid - 1], device="cuda"),
+            c["width"], c["height"], c["f"], cx, cy, synthetic.DEPTH).float().cpu().numpy()
+            for iid in g.image_ids])
+        depth_pyramids.append(build_image_pyramid(maps, g.level_count, device="cuda"))
+    problem.depth_map_pyramids = depth_pyramids
+    kernels.reset_launch_counts()  # the optimizer builds the chunks' row-paired copies
+    opt = image_registrator.make_optimizer(problem, args, params)
+    print(f"depth problem: cloud cache and {len(depth_pyramids[0][0])} ray-cast depth maps in "
+          f"{time.perf_counter() - t0:.1f} s")
+    opt.current_scale = 0
+    costs = []
+    t0 = time.perf_counter()
+    with CaptureB3(optimizer, "_hb_depth_batch") as cap:
+        report = opt.run_on_current_scale(3, iteration_costs=costs)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = b3_launches(kernels)
+    print(f"depth residuals (weight 1) on DSLR: 3 iterations {wall:.3f} s; costs {costs} -> optimum "
+          f"{report.optimum_cost:.6f}; launches {launches}")
+    if not report.optimum_cost < costs[0]:
+        fail("depth residuals: the optimum cost is not below the first iteration's")
+    if any(v <= 0 for v in launches.values()) or not cap:
+        fail(f"depth residuals: B3 launches {launches}, depth-core launch kept {bool(cap)}")
+    del opt, problem
+    return {"wall_s": wall, "launches": launches, "costs": costs}, dict(cap)
+
+
+def run_registrator_mesh(torch, kernels, image_registrator, cio, quat_to_matrix_np, root: str,
+                         cache: str, truth):
+    """(d) The DSLR configuration with the ground-truth phase's 1 cm surface
+    mesh as occlusion geometry (``--occlusion_mesh_path``), at scale 0."""
+    out = os.path.join(root, "out_mesh")
+    kernels.reset_launch_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    rc = image_registrator.main(registrator_args(
+        root, out, "cuda", ["--initial_scaling_factor", "1", "--target_scaling_factor", "1",
+                            "--merge_distance_factor", "3.0", "--occlusion_mesh_path",
+                            os.path.join(root, "mesh.ply"), "--multi_res_point_cloud_directory_path",
+                            cache]), stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        fail(f"mesh-occlusion registrator returned {rc}")
+    launches = b3_launches(kernels)
+    before = pose_errors(os.path.join(root, "state"), *truth, cio, quat_to_matrix_np)
+    after = pose_errors(os.path.join(out, "scale_1_state"), *truth, cio, quat_to_matrix_np)
+    sc = stats["scales"][-1]
+    print(f"mesh-occlusion DSLR: wall {wall:.3f} s; stages "
+          + ", ".join(f"{k} {v:.3f}" for k, v in read_timing(out).items())
+          + f"; observations {sc['observations']}; costs {sc['iteration_costs']} -> optimum "
+          f"{sc['optimum_cost']:.6f}; pose error mean {1e3 * before.mean():.3f} -> "
+          f"{1e3 * after.mean():.3f} mm; launches {launches}")
+    if not (sc["optimum_cost"] < sc["iteration_costs"][0] and after.mean() < before.mean()):
+        fail("mesh-occlusion registrator: the cost or the pose error did not go down")
+    if any(v <= 0 for v in launches.values()):
+        fail(f"mesh-occlusion registrator never launched a B3 kernel: {launches}")
+    return {"wall_s": wall, "launches": launches, "observations": sc["observations"]}
+
+
+def run_slice4(torch, kernels, image_registrator, optimizer, synthetic, cio, quat_to_matrix_np,
+               tps, root: str, truth):
+    """(a)-(d) and the depth residuals; returns (results, B3 launches per
+    path, B3 checks at the kept launches)."""
+    cache = os.path.join(root, "dslr", "cache")
+    res, launches, b3_at = {}, {}, {}
+    t_all = time.perf_counter()
+    t0 = time.perf_counter()
+    res["cleaner"] = run_cleaner_dslr(torch, os.path.join(root, "dslr"))
+    torch.cuda.empty_cache()
+    print(f"(a) cleaner: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res["caches"], cap = run_registrator_caches(torch, kernels, image_registrator, optimizer, cio,
+                                                os.path.join(root, "dslr"), cache)
+    launches["registrator_caches"] = res["caches"]["run2"]["launches"]
+    b3_at["views"] = check_b3_at_captured(torch, tps, cap, "the cache run's first launch on the views")
+    torch.cuda.empty_cache()
+    print(f"(b) both caches: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res["depth"], cap = run_registrator_depth(torch, kernels, image_registrator, optimizer, synthetic,
+                                              os.path.join(root, "dslr"), cache, truth)
+    launches["registrator_depth"] = res["depth"]["launches"]
+    b3_at["depth"] = check_b3_at_captured(torch, tps, cap, "the depth core's first launch")
+    torch.cuda.empty_cache()
+    print(f"depth residuals: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res["mesh"] = run_registrator_mesh(torch, kernels, image_registrator, cio, quat_to_matrix_np,
+                                       os.path.join(root, "dslr"), cache, truth)
+    launches["registrator_mesh"] = res["mesh"]["launches"]
+    torch.cuda.empty_cache()
+    print(f"(d) mesh occlusion: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    res["rig"], cap = run_registrator_rig(torch, kernels, image_registrator, optimizer, synthetic, cio,
+                                          quat_to_matrix_np, os.path.join(root, "rig"), cache)
+    launches["registrator_rig"] = res["rig"]["launches"]
+    b3_at["rig"] = check_b3_at_captured(torch, tps, cap, "the rig core's first launch")
+    torch.cuda.empty_cache()
+    print(f"(c) rigs: {time.perf_counter() - t0:.1f} s")
+    print(f"slice-4 phase: {time.perf_counter() - t_all:.1f} s")
+    return res, launches, b3_at
+
+
 def check_no_jax() -> None:
     if any(m in ("jax", "dataset_pipeline_tpu") or m.startswith(("jax.", "dataset_pipeline_tpu."))
            for m in sys.modules):
@@ -2154,6 +2550,12 @@ def main(argv=None) -> int:
             fail(f"the ground-truth path launched a hand-written kernel: {dict(kernels.LAUNCHES)}")
         print(f"ground-truth phase: {time.perf_counter() - t0:.1f} s; "
               + json.dumps({"ground_truth": gt_res}))
+
+        # slice 4: the cleaner, both caches, depth residuals, mesh occlusion, rigs
+        slice4, slice4_launches, b3_slice4 = run_slice4(
+            torch, kernels, image_registrator, optimizer, synthetic, cio, quat_to_matrix_np, tps,
+            root, truth)
+        print(json.dumps({"slice4": slice4}, default=float))
     b3["dslr_inputs"] = check_b3_at_captured(torch, tps, dslr_b3, "the DSLR run's first derivs launch",
                                              flat_sampler)
     del dslr_b3
@@ -2200,10 +2602,11 @@ def main(argv=None) -> int:
     # per kernel: the launches of each main path that runs it (by counter: B1 and
     # B3 have two launch modes), and this run's numbers
     by_path = {"icp_scan_aligner": launches, "image_registrator": reg, "icp_bench": bench,
-               "gather_probe": probe_launches}
+               "gather_probe": probe_launches, **slice4_launches}
     measured = {"gn_fused": b1, "moment_gram": b2,
                 "pyramid_sample": {**b3["derivs"],
-                                   **{k: b3[k] for k in ("pair_build", "dslr_inputs", "flat_sampler") if k in b3}},
+                                   **{k: b3[k] for k in ("pair_build", "dslr_inputs", "flat_sampler") if k in b3},
+                                   "slice4_inputs": b3_slice4},
                 "gn_rows": b4a,
                 "hbm_read_sum": b5b, **variants, **probes}
     report = []

@@ -218,6 +218,10 @@ class PointToPlaneICP:
             self._poses.append(T)
         return len(self._clouds) - 1
 
+    def get_result_global_T_cloud(self, index: int) -> np.ndarray:
+        """global_T_cloud (4,4) of movable cloud ``index`` (after ``run``)."""
+        return self._poses[index]
+
     # -- correspondence search ------------------------------------------------
 
     def _find_all_correspondences(self, globals_: List[Tuple[np.ndarray, np.ndarray]],

@@ -1,4 +1,4 @@
-"""8-bit grayscale image I/O for the registrator.
+"""8-bit image I/O for the registrator.
 
 Binary PGM (P5) and PPM (P6) with maxval <= 255 are read and written with
 numpy; an RGB input becomes gray by PIL's ``convert("L")`` integer luma,
@@ -45,22 +45,38 @@ def rgb_to_luma(rgb: np.ndarray) -> np.ndarray:
             >> 16).astype(np.uint8)
 
 
-def read_gray(path: str) -> np.ndarray:
-    """Image file -> (H,W) float32 gray values 0..255."""
-    with open(path, "rb") as f:
-        magic = f.read(2)
-    if magic in _NETPBM:
-        img = _read_netpbm(path)
-        if img.ndim == 3:
-            img = rgb_to_luma(img)
-        return img.astype(np.float32)
+def _read_pil(path: str, mode: str) -> np.ndarray:
     try:
         from PIL import Image
     except ImportError as e:
         raise RuntimeError(
             f"{path}: only binary PGM/PPM are read without PIL, and PIL is not"
             " installed") from e
-    return np.asarray(Image.open(path).convert("L"), np.float32)
+    return np.asarray(Image.open(path).convert(mode))
+
+
+def _is_netpbm(path: str) -> bool:
+    with open(path, "rb") as f:
+        return f.read(2) in _NETPBM
+
+
+def read_gray(path: str) -> np.ndarray:
+    """Image file -> (H,W) float32 gray values 0..255."""
+    if _is_netpbm(path):
+        img = _read_netpbm(path)
+        if img.ndim == 3:
+            img = rgb_to_luma(img)
+        return img.astype(np.float32)
+    return _read_pil(path, "L").astype(np.float32)
+
+
+def read_rgb(path: str) -> np.ndarray:
+    """Image file -> (H,W,3) uint8 (a gray image repeated in the three
+    channels, as PIL's ``convert("RGB")`` gives it)."""
+    if _is_netpbm(path):
+        img = _read_netpbm(path)
+        return np.repeat(img[..., None], 3, -1) if img.ndim == 2 else img
+    return _read_pil(path, "RGB")
 
 
 def write_pgm(path: str, img: np.ndarray) -> None:

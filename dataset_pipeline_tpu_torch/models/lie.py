@@ -1,7 +1,6 @@
-"""Batched Lie-group math (SO3 / SE3) in torch.
+"""Batched Lie-group math (SO3 / SE3 / Sim3) in torch.
 
-Port of the subset of ``dataset_pipeline_tpu/models/lie.py`` that ICP and the
-renderers use.
+Port of ``dataset_pipeline_tpu/models/lie.py``.
 Quaternions are ``(..., 4)`` in ``wxyz`` order, translations ``(..., 3)``;
 every function broadcasts over leading dimensions. The closed forms stay
 elementwise (no 3x3 matmuls), so results do not depend on a matmul's
@@ -157,6 +156,27 @@ def so3_exp_quat(w):
     return torch.cat([qw, k * w], dim=-1)
 
 
+def so3_log(q):
+    """Unit quaternion -> axis-angle vector ``(...,3)``."""
+    q = torch.where(q[..., :1] < 0, -q, q)  # w >= 0 branch
+    w = q[..., :1]
+    v = q[..., 1:]
+    vn_sq = torch.sum(v * v, dim=-1, keepdim=True)
+    vn = torch.sqrt(torch.clamp(vn_sq, min=_EPS * _EPS))
+    theta = 2.0 * torch.atan2(vn, w)
+    small = vn_sq < _EPS
+    k = torch.where(small, 2.0 / torch.clamp(w, min=_EPS), theta / vn)
+    return k * v
+
+
+def skew(w):
+    """(...,3) -> (...,3,3) cross-product matrix."""
+    zeros = torch.zeros_like(w[..., 0])
+    wx, wy, wz = w[..., 0], w[..., 1], w[..., 2]
+    m = torch.stack([zeros, -wz, wy, wz, zeros, -wx, -wy, wx, zeros], dim=-1)
+    return m.reshape(w.shape[:-1] + (3, 3))
+
+
 def _apply_V(w, u):
     """V(w) @ u where V = I + (1-cos)/t^2 [w]x + (t-sin)/t^3 [w]x^2."""
     theta_sq = torch.sum(w * w, dim=-1, keepdim=True)
@@ -169,6 +189,20 @@ def _apply_V(w, u):
     wdotu = torch.sum(w * u, dim=-1, keepdim=True)
     wxxu = w * wdotu - theta_sq * u
     return u + a * wxu + b * wxxu
+
+
+def _apply_V_inv(w, t):
+    """V(w)^-1 @ t = t - 0.5 [w]x t + c [w]x^2 t."""
+    theta_sq = torch.sum(w * w, dim=-1, keepdim=True)
+    theta = torch.sqrt(torch.clamp(theta_sq, min=_EPS * _EPS))
+    small = theta_sq < _EPS
+    half_theta = 0.5 * theta
+    c = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0,
+                    (1.0 - half_theta * torch.cos(half_theta) / torch.sin(half_theta)) / theta_sq)
+    wxt = _cross(w, t)
+    wdott = torch.sum(w * t, dim=-1, keepdim=True)
+    wxxt = w * wdott - theta_sq * t
+    return t - 0.5 * wxt + c * wxxt
 
 
 class SE3(NamedTuple):
@@ -186,17 +220,27 @@ class SE3(NamedTuple):
     def from_matrix(m) -> "SE3":
         return SE3(quat_from_matrix(m[..., :3, :3]), m[..., :3, 3])
 
+    @staticmethod
+    def from_rt(R, t) -> "SE3":
+        return SE3(quat_from_matrix(R), t)
+
+    @property
+    def batch_shape(self):
+        return self.q.shape[:-1]
+
+    def rotation_matrix(self):
+        return quat_to_matrix(self.q)
+
     def matrix(self):
         """(...,4,4) homogeneous matrix."""
-        R = quat_to_matrix(self.q)
-        top = torch.cat([R, self.t[..., :, None]], dim=-1)
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=self.q.dtype,
-                              device=self.q.device).expand(top.shape[:-2] + (1, 4))
-        return torch.cat([top, bottom], dim=-2)
+        return _homogeneous(quat_to_matrix(self.q), self.t)
 
     def apply(self, p):
         """Transform points ``(...,3)``."""
         return quat_rotate(self.q, p) + self.t
+
+    def rotate(self, v):
+        return quat_rotate(self.q, v)
 
     def apply_fused(self, p):
         """:meth:`apply` as XLA compiles it inside ``jit``."""
@@ -219,3 +263,79 @@ class SE3(NamedTuple):
         (Sophus/twist convention ``t = V(w) @ u``)."""
         u, w = tangent[..., :3], tangent[..., 3:]
         return SE3(so3_exp_quat(w), _apply_V(w, u))
+
+    def log(self):
+        w = so3_log(self.q)
+        return torch.cat([_apply_V_inv(w, self.t), w], dim=-1)
+
+    def cast(self, dtype) -> "SE3":
+        return SE3(self.q.to(dtype), self.t.to(dtype))
+
+
+def _homogeneous(R, t):
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
+                          device=R.device).expand(top.shape[:-2] + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
+
+
+class Sim3(NamedTuple):
+    """Similarity transform x -> s R x + t (MeshLab ``.mlp`` global poses)."""
+
+    q: torch.Tensor
+    t: torch.Tensor
+    s: torch.Tensor  # scale (...,)
+
+    @staticmethod
+    def identity(batch_shape=(), dtype=torch.float32, device=None) -> "Sim3":
+        return Sim3(quat_identity(batch_shape, dtype, device),
+                    torch.zeros(tuple(batch_shape) + (3,), dtype=dtype, device=device),
+                    torch.ones(tuple(batch_shape), dtype=dtype, device=device))
+
+    @staticmethod
+    def from_matrix(m) -> "Sim3":
+        R = m[..., :3, :3]
+        s = torch.linalg.matrix_norm(R) / np.sqrt(3.0)
+        return Sim3(quat_from_matrix(R / s[..., None, None]), m[..., :3, 3], s)
+
+    @staticmethod
+    def from_se3(se3: SE3, scale=None) -> "Sim3":
+        s = (torch.ones(se3.batch_shape, dtype=se3.q.dtype, device=se3.q.device)
+             if scale is None else scale)
+        return Sim3(se3.q, se3.t, s)
+
+    def se3(self) -> SE3:
+        return SE3(self.q, self.t)
+
+    def matrix(self):
+        return _homogeneous(quat_to_matrix(self.q) * self.s[..., None, None], self.t)
+
+    def apply(self, p):
+        return self.s[..., None] * quat_rotate(self.q, p) + self.t
+
+    def inverse(self) -> "Sim3":
+        qinv = quat_conjugate(self.q)
+        sinv = 1.0 / self.s
+        return Sim3(qinv, -sinv[..., None] * quat_rotate(qinv, self.t), sinv)
+
+    def compose(self, other: "Sim3") -> "Sim3":
+        return Sim3(quat_normalize(quat_multiply(self.q, other.q)),
+                    self.s[..., None] * quat_rotate(self.q, other.t) + self.t, self.s * other.s)
+
+    def __matmul__(self, other):
+        if isinstance(other, Sim3):
+            return self.compose(other)
+        return self.apply(other)
+
+
+def average_quaternions(qs, dim: int = 0):
+    """Chordal-L2 rotation average: the principal eigenvector of the sum of
+    q q^T, by 50 steps of power iteration."""
+    qs = torch.where(qs[..., :1] < 0, -qs, qs)
+    M = torch.sum(qs[..., :, None] * qs[..., None, :], dim=dim)
+    v = torch.ones(M.shape[:-1], dtype=M.dtype, device=M.device)
+    v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    for _ in range(50):
+        v = torch.sum(M * v[..., None, :], dim=-1)
+        v = v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return quat_normalize(v)

@@ -1,8 +1,7 @@
 """Neighbor search: tiled brute force and voxel-grid search, in torch.
 
-Port of ``dataset_pipeline_tpu/ops/knn.py`` (``knn_adaptive`` and
-``radius_search`` are not ported yet). Results match the JAX functions index
-for index, so the orderings that decide ties are kept on purpose:
+Port of ``dataset_pipeline_tpu/ops/knn.py``. Results match the JAX functions
+index for index, so the orderings that decide ties are kept on purpose:
 
 - ``build_grid`` sorts cell ids with a STABLE sort, as ``jnp.argsort`` does:
   points inside a cell keep their original order, and the ``max_per_cell``
@@ -14,7 +13,15 @@ for index, so the orderings that decide ties are kept on purpose:
   ``sum(d * d, -1)``; ``addcmul`` gives the same bits.
 
 Empty result slots are ``(inf, -1)``. The query loops run ``chunk`` queries at
-a time; the chunk only bounds memory and never changes a result.
+a time; the chunk only bounds memory and never changes a result. Every
+function runs on the device of the tensors it is given: a CUDA tensor stays on
+the card, and only a few scalars (the sizing of ``knn_adaptive``'s grid) come
+to the host.
+
+The grid's cell ids are int32, as in the JAX package: a grid of 2^31 cells or
+more wraps around (``knn_adaptive`` sizes its cells from the data, so a sparse
+cloud over a large box can get there); callers that can meet such clouds
+check ``grid_cells`` first.
 """
 
 from __future__ import annotations
@@ -169,6 +176,116 @@ def knn_grid(grid: VoxelGrid, queries, k: int, max_per_cell: int = 32,
         idx_out.append(torch.where(sel_valid, grid.order[sel_cand], -1))
         drop_out.append(dropped)
     return torch.cat(d2_out), torch.cat(idx_out), torch.cat(drop_out)
+
+
+def grid_cells(points, cell_size: float) -> int:
+    """Cells of the grid :func:`build_grid` lays over ``points`` (its cell
+    ids are int32: at 2^31 cells or more they wrap around)."""
+    pts = torch.as_tensor(points, dtype=torch.float32)
+    lo = pts.amin(0).cpu().numpy() - 0.5 * cell_size
+    hi = pts.amax(0).cpu().numpy() + 0.5 * cell_size
+    return int(np.prod(np.maximum(np.ceil((hi - lo) / cell_size), 1)))
+
+
+_SAMPLE = 4096  # points whose exact k-th neighbour distance sizes the grid
+_SLOTS = 1 << 25  # candidate slots per pass of the grid kNN (bounds its temporaries)
+
+
+def _sample_kth_distances(points, k: int):
+    """Exact k-th neighbour distances (the point itself counted, as a query
+    that is one of the points sees it) of a seeded sample of ``points``, by
+    coordinate differences on the points' device."""
+    n = points.shape[0]
+    rng = np.random.RandomState(0)
+    sample = points[torch.from_numpy(rng.choice(n, size=min(n, _SAMPLE), replace=False))
+                    .to(points.device)]
+    rows = max(1, _SLOTS // n)
+    kth = []
+    for s in range(0, sample.shape[0], rows):
+        d2 = _sqnorm3(points[None] - sample[s:s + rows, None])
+        kth.append(torch.topk(d2, k, dim=1, largest=False, sorted=False)[0].amax(1))
+    return torch.sqrt(torch.cat(kth)).cpu().numpy().astype(np.float64)
+
+
+def adaptive_grid(points, k: int):
+    """(cell size, max_per_cell) of :func:`knn_adaptive`'s first grid pass
+    (one ring): the cell is 1.05x the 99th percentile of a 4096-point sample's
+    exact k-th neighbour distance, so that one ring reaches the k-th
+    neighbour of all but the sparsest queries, whatever the cloud's
+    dimension (a scan is a surface); the cap is 1.5x the 99th percentile of
+    the occupied cells' counts."""
+    cell = max(1.05 * float(np.quantile(_sample_kth_distances(points, k), 0.99)), 1e-9)
+    grid = build_grid(points, cell)
+    counts = torch.unique_consecutive(grid.cell_ids, return_counts=True)[1].double()
+    cap = max(8, int(np.ceil(1.25 * float(torch.quantile(counts, 0.99)))))
+    return grid, cell, cap
+
+
+def knn_adaptive(points, queries, k: int, stats: dict | None = None):
+    """Exact kNN at production scale: a sized voxel-grid pass, a repair of
+    the queries it could not certify with two more rings and twice the cap
+    (twice), then a brute-force repair of what is left.
+
+    A query's grid result is certified iff none of its cells hit the
+    ``max_per_cell`` cap and its k-th neighbour lies within the rings' reach
+    ``rings * cell``. The grid is sized from exact k-th neighbour distances
+    of a sample (:func:`adaptive_grid`). ``stats``, if given, receives the
+    sizing (``cell``, ``cap``, ``grid_cells``) and the number of queries each
+    repair took. Returns (d2 (Q,k), idx (Q,k)) sorted ascending, on the
+    points' device.
+    """
+    pts = torch.as_tensor(points, dtype=torch.float32)
+    queries = torch.as_tensor(queries, dtype=torch.float32).to(pts.device)
+    n, Q = pts.shape[0], queries.shape[0]
+    k = min(k, n)
+    if n <= max(4 * k, 20_000):
+        return knn_bruteforce(queries, pts, k)
+    grid, cell, cap = adaptive_grid(pts, k)
+    rings = 1
+
+    def grid_pass(q, rings_, cap_):
+        return knn_grid(grid, q, k, cap_, max(1, _SLOTS // ((2 * rings_ + 1) ** 3 * cap_)), rings_)
+
+    def uncertified(d2_, idx_, dropped_, reach):
+        kth = torch.sqrt(torch.clamp(d2_[:, -1], min=0.0))
+        return (dropped_ > 0) | (idx_[:, -1] < 0) | ~(kth <= reach)
+
+    d2, idx, dropped = grid_pass(queries, rings, cap)
+    bad = uncertified(d2, idx, dropped, rings * cell)
+    repairs = []
+    for _ in range(2):
+        sel = torch.nonzero(bad)[:, 0]
+        if sel.numel() == 0:
+            break
+        rings += 2
+        cap *= 2
+        repairs.append(int(sel.numel()))
+        d2r, idxr, dropr = grid_pass(queries[sel], rings, cap)
+        d2[sel], idx[sel] = d2r, idxr
+        bad = torch.zeros_like(bad)
+        bad[sel[uncertified(d2r, idxr, dropr, rings * cell)]] = True
+    sel = torch.nonzero(bad)[:, 0]
+    if sel.numel():
+        if sel.numel() > Q // 10:
+            print(f"knn_adaptive: brute-force repair of {sel.numel()}/{Q} queries "
+                  f"(cell={cell:.4g})")
+        d2[sel], idx[sel] = knn_bruteforce(queries[sel], pts, k)
+    if stats is not None:
+        stats.update(cell=cell, cap=cap,
+                     grid_cells=int(np.prod(grid.dims)), grid_repairs=repairs,
+                     bruteforce_repairs=int(sel.numel()))
+    return d2, idx
+
+
+def radius_search(grid: VoxelGrid, queries, radius, max_results: int, max_per_cell: int = 32,
+                  chunk: int = 16384):
+    """All neighbors within ``radius`` (up to ``max_results`` nearest).
+
+    Requires ``radius <= cell_size``. Returns (d2, idx) padded with (inf,-1).
+    """
+    d2, idx, _ = knn_grid(grid, queries, max_results, max_per_cell, chunk)
+    keep = d2 <= torch.tensor(radius, dtype=torch.float32) ** 2
+    return torch.where(keep, d2, torch.inf), torch.where(keep, idx, -1)
 
 
 def nearest_neighbor(grid: VoxelGrid, queries, max_per_cell: int = 32, chunk: int = 16384):

@@ -4,7 +4,8 @@ Port of ``dataset_pipeline_tpu/photometric/problem.py``: multi-scale point
 levels with per-point K-neighbor indices and fixed descriptors, image
 pyramids per camera group, per-image poses, and the occlusion splat points.
 All tensors live on one device; images are one (B, H_s, W_s) float32 tensor
-per scale. Rigs, depth maps and the occlusion mesh wait for later slices.
+per scale; optionally camera rigs, fixed depth maps for the inverse-depth
+residual, and an occlusion mesh.
 
 ``problem_from_numpy`` carries a problem state (the JAX package's, as numpy
 arrays) into the port, so both optimizers can start from the same state.
@@ -12,7 +13,7 @@ arrays) into the port, so both optimizers can start from the same state.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
@@ -72,10 +73,16 @@ class ImageGroup:
 
     camera: cm.Camera  # camera of the group's finest level
     pyramid: List[torch.Tensor]  # per group level (B,H_l,W_l) float32
-    poses: SE3  # (B,) image_T_global
+    poses: SE3  # (B,) image_T_global (derived for rig-dependent groups)
     image_ids: List[int]
     min_image_scale: int = 0
     mask_pyramid: Optional[List[torch.Tensor]] = None  # per scale (B,H_s,W_s) uint8
+    # rig role: a group whose camera is a rig camera other than the
+    # reference has its poses derived as image_T_rig . reference pose
+    rig_id: int = -1
+    rig_cam_index: int = 0
+    ref_group: int = -1  # index of the reference camera's group
+    ref_slots: Optional[np.ndarray] = None  # per image: index into the reference group
 
     @property
     def num_images(self) -> int:
@@ -95,6 +102,11 @@ class PhotoProblem:
     scale_count: int  # global image scale count
     max_valid_intensity: float = 252.0
     occlusion_depth_threshold: float = 0.01
+    rig_extrinsics: List[SE3] = field(default_factory=list)  # per rig: (ncams,) image_T_rig
+    occlusion_mesh: Optional[object] = None  # ops.mesh_raster.OcclusionMesh
+    # fixed per-image depth maps of the inverse-depth residual: per group, per
+    # group scale, (B,H_s,W_s) (build_image_pyramid of the depth maps)
+    depth_map_pyramids: Optional[List[List[torch.Tensor]]] = None
 
     @property
     def num_images(self) -> int:
@@ -198,7 +210,7 @@ def build_photo_level(level: PointLevel, k: int = DEFAULT_NEIGHBOR_COUNT,
 def problem_from_numpy(levels, groups, occlusion_points, occlusion_radius: float,
                        scale_count: int, max_valid_intensity: float = 252.0,
                        occlusion_depth_threshold: float = 0.01,
-                       device=None) -> PhotoProblem:
+                       device=None, rig_extrinsics=(), depth_map_pyramids=None) -> PhotoProblem:
     """A :class:`PhotoProblem` on ``device`` from numpy state.
 
     ``levels``: per level a dict with ``points, intensities, scan_indices,
@@ -206,7 +218,10 @@ def problem_from_numpy(levels, groups, occlusion_points, occlusion_radius: float
     dict with ``model, width, height, params, radius_cutoff_sq`` (the
     camera, cutoff carried as is), ``pyramid`` (per scale (B,H_s,W_s)),
     ``q (B,4)`` wxyz and ``t (B,3)`` (image_T_global), ``image_ids``,
-    ``min_image_scale`` and optionally ``mask_pyramid``."""
+    ``min_image_scale`` and optionally ``mask_pyramid`` and the rig role
+    (``rig_id``, ``rig_cam_index``, ``ref_group``, ``ref_slots``).
+    ``rig_extrinsics``: per rig (q (ncams,4), t (ncams,3));
+    ``depth_map_pyramids``: per group, per scale (B,H_s,W_s)."""
     device = default_device(device)
     lv = [_level_to_device(d["points"], d["intensities"], d["scan_indices"],
                            d["neighbors"], d["fixed_descriptors"], d["radius"], device)
@@ -225,8 +240,15 @@ def problem_from_numpy(levels, groups, occlusion_points, occlusion_radius: float
             poses=SE3(f32(d["q"]), f32(d["t"])), image_ids=list(d["image_ids"]),
             min_image_scale=int(d.get("min_image_scale", 0)),
             mask_pyramid=None if masks is None else
-            [torch.as_tensor(np.array(m, np.uint8), device=device) for m in masks]))
+            [torch.as_tensor(np.array(m, np.uint8), device=device) for m in masks],
+            rig_id=int(d.get("rig_id", -1)), rig_cam_index=int(d.get("rig_cam_index", 0)),
+            ref_group=int(d.get("ref_group", -1)),
+            ref_slots=None if d.get("ref_slots") is None else np.asarray(d["ref_slots"], np.int32)))
+    depth = None if depth_map_pyramids is None else [[f32(p) for p in per_group]
+                                                     for per_group in depth_map_pyramids]
     return PhotoProblem(groups=gs, levels=lv, occlusion_points=f32(occlusion_points),
                         occlusion_radius=float(occlusion_radius), scale_count=int(scale_count),
                         max_valid_intensity=float(max_valid_intensity),
-                        occlusion_depth_threshold=float(occlusion_depth_threshold))
+                        occlusion_depth_threshold=float(occlusion_depth_threshold),
+                        rig_extrinsics=[SE3(f32(q), f32(t)) for q, t in rig_extrinsics],
+                        depth_map_pyramids=depth)

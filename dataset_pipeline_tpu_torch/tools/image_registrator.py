@@ -3,15 +3,22 @@
 Port of ``dataset_pipeline_tpu/tools/image_registrator.py`` with the same
 flags plus ``--device`` (default ``cuda``; it raises when CUDA is absent
 instead of running on the CPU). Loads the scan alignment (.mlp), the
-occlusion splat points, camera groups and poses from a COLMAP state dir,
-builds the multi-resolution point cloud, and runs the coarse-to-fine
-photometric optimizer, exporting a COLMAP state dir ``scale_<f>_state`` with
-a ``metadata.txt`` parameter dump after every completed image scale, and
-``timing.json`` at the end.
+occlusion geometry (splat points, or a mesh with ``--occlusion_mesh_path``,
+whose faces ``--occlusion_splats_path`` extends), camera groups and poses from
+a COLMAP state dir (with camera rigs when the dir holds ``rigs.json``),
+builds the multi-resolution point cloud (or loads it from
+``--multi_res_point_cloud_directory_path``, which also caches the point
+neighbours), and runs the coarse-to-fine photometric optimizer, exporting a
+COLMAP state dir ``scale_<f>_state`` with a ``metadata.txt`` parameter dump
+(and ``rigs.json``) after every completed image scale, and ``timing.json`` at
+the end. ``--cache_observations`` compacts each image's candidate points after
+the first scale (kept beside the cloud cache when there is one);
+``--write_debug_point_clouds`` writes ``initial_point_cloud.ply`` coloured
+from the initial state. ``--depth_residuals_weight`` is passed to the
+optimizer, which, as in the JAX tool, is given no depth maps here.
 
-Not ported yet (the flags exist and raise): rigs (``rigs.json``), depth
-residuals, the occlusion mesh, the multi-resolution cloud and observations
-caches, more than one device, and the debug point cloud (ROADMAP A).
+Not ported yet (the flags exist and raise): more than one device
+(``--devices`` > 1, ``--mesh``; ROADMAP A.11).
 
 Run: ``python -m dataset_pipeline_tpu_torch.tools.image_registrator
 --scan_alignment_path scans.mlp --image_base_path images --state_path state
@@ -29,14 +36,24 @@ import numpy as np
 import torch
 
 from dataset_pipeline_tpu_torch import resolve_device
-from dataset_pipeline_tpu_torch.io.image import read_gray
-from dataset_pipeline_tpu_torch.io.ply import read_ply
+from dataset_pipeline_tpu_torch.io.colmap import read_rigs_json, write_rigs_json
+from dataset_pipeline_tpu_torch.io.image import read_gray, read_rgb
+from dataset_pipeline_tpu_torch.io.ply import PointCloud, read_ply, write_ply
 from dataset_pipeline_tpu_torch.io.scans import load_scan_set
 from dataset_pipeline_tpu_torch.io.state import ImageState, ModelState, load_colmap_state, save_colmap_state
+from dataset_pipeline_tpu_torch.models import cameras as cm
 from dataset_pipeline_tpu_torch.models.lie import SE3, quat_to_matrix
+from dataset_pipeline_tpu_torch.ops.mesh_raster import build_occlusion_mesh
+from dataset_pipeline_tpu_torch.photometric.cache import (
+    load_multiscale_cache,
+    load_photo_levels_cache,
+    save_multiscale_cache,
+    save_photo_levels_cache,
+)
 from dataset_pipeline_tpu_torch.photometric.masks import build_mask_pyramid, combined_mask
 from dataset_pipeline_tpu_torch.photometric.multiscale import build_multiscale_cloud
 from dataset_pipeline_tpu_torch.photometric.optimizer import PhotometricOptimizer
+from dataset_pipeline_tpu_torch.photometric.rig import assign_rigs, mark_rig_groups
 from dataset_pipeline_tpu_torch.photometric.problem import (
     ImageGroup,
     PhotoProblem,
@@ -124,22 +141,52 @@ def export_state(path: str, opt: PhotometricOptimizer, state: ModelState, metada
             f.write(f"{k} {v}\n")
 
 
-def _check_not_ported(args, params: Parameters):
-    if os.path.exists(os.path.join(args.state_path, "rigs.json")):
-        raise _not_ported("camera rigs (rigs.json)", "7, rig.py / _hb_rig_core")
-    if params.depth_residuals_weight > 0:
-        raise _not_ported("depth residuals", "7, _hb_depth_core / _cost_depth_batch")
-    if args.occlusion_mesh_path:
-        raise _not_ported("the occlusion mesh", "6, ops/mesh_raster.py")
-    if args.cache_observations:
-        raise _not_ported("the observations cache", "5, obs_cache.py")
-    if args.multi_res_point_cloud_directory_path:
-        raise _not_ported("the multi-resolution point-cloud cache", "5, cache.py")
+def write_debug_colored_cloud(path: str, opt: PhotometricOptimizer, points: np.ndarray,
+                              image_base_path: str, state: ModelState) -> None:
+    """Coloured debug point cloud under the current state: every occlusion
+    point is projected into every image (with the occlusion z-test), the
+    colour photograph is sampled bilinearly and averaged over the observing
+    images (host float64, as in the JAX tool); unobserved points stay black."""
+    id_to_name = {im.image_id: im.name for im in state.images}
+    pts = torch.as_tensor(np.asarray(points, np.float32), device=opt.device)
+    n = len(points)
+    sums = np.zeros((n, 3), np.float64)
+    counts = np.zeros(n, np.int64)
+    occl = opt._occlusion_depths()
+    thresh = opt.p.occlusion_depth_threshold
+    for gi, g in enumerate(opt.p.groups):
+        cam = g.camera
+        for b, iid in enumerate(g.image_ids):
+            rgb = read_rgb(os.path.join(image_base_path, id_to_name[iid])).astype(np.float64)
+            p_cam = SE3(g.poses.q[b], g.poses.t[b]).apply(pts)
+            pix, ok = cm.project(cam, p_cam)
+            p_cam, pix, ok = p_cam.cpu().numpy(), pix.cpu().numpy(), ok.cpu().numpy()
+            z = p_cam[:, 2]
+            x, y = pix[:, 0], pix[:, 1]
+            x0 = np.floor(x).astype(np.int64)
+            y0 = np.floor(y).astype(np.int64)
+            vis = (ok & (z > 0) & (x0 >= 0) & (y0 >= 0)
+                   & (x0 + 1 < cam.width) & (y0 + 1 < cam.height))
+            od = occl[gi][b].cpu().numpy()
+            ix = np.clip(np.floor(x + 0.5).astype(np.int64), 0, cam.width - 1)
+            iy = np.clip(np.floor(y + 0.5).astype(np.int64), 0, cam.height - 1)
+            vis &= np.nan_to_num(od[iy, ix], nan=-np.inf) + thresh >= z
+            fx_ = (x - x0)[vis, None]
+            fy_ = (y - y0)[vis, None]
+            xv, yv = x0[vis], y0[vis]
+            sums[vis] += ((1 - fx_) * (1 - fy_) * rgb[yv, xv] + fx_ * (1 - fy_) * rgb[yv, xv + 1]
+                          + (1 - fx_) * fy_ * rgb[yv + 1, xv] + fx_ * fy_ * rgb[yv + 1, xv + 1])
+            counts[vis] += 1
+    colors = np.zeros((n, 3), np.uint8)
+    obs = counts > 0
+    colors[obs] = np.clip(sums[obs] / counts[obs, None] + 0.5, 0, 255).astype(np.uint8)
+    write_ply(path, PointCloud(np.asarray(points, np.float32), None, colors))
+
+
+def _check_not_ported(args):
     if args.devices != 1 or args.mesh:
         raise _not_ported("more than one device (--devices, --mesh)",
                           "11, parallel/photometric.py")
-    if args.write_debug_point_clouds:
-        raise _not_ported("--write_debug_point_clouds", "8, write_debug_colored_cloud")
 
 
 def parse_args(argv=None):
@@ -160,11 +207,12 @@ def parse_args(argv=None):
     p.add_argument("--camera_ids_to_ignore", default="")
     p.add_argument("--fix_intrinsics", action="store_true")
     p.add_argument("--multi_res_point_cloud_directory_path", default="",
-                   help="cache dir for the multi-resolution point cloud (not ported yet)")
+                   help="cache dir for the multi-resolution point cloud")
     p.add_argument("--write_debug_point_clouds", action="store_true",
-                   help="write initial_point_cloud.ply (not ported yet)")
+                   help="write initial_point_cloud.ply coloured from the initial state")
     p.add_argument("--cache_observations", action="store_true",
-                   help="observations cache (not ported yet)")
+                   help="after the first scale, compact per-image candidate point views and "
+                        "persist them next to the multi-res cloud cache")
     p.add_argument("--devices", type=int, default=1,
                    help="devices to shard the photometric passes over (only 1 is ported)")
     p.add_argument("--mesh", default="", help="device mesh topology (not ported yet)")
@@ -175,15 +223,46 @@ def parse_args(argv=None):
     return args, Parameters.from_args(args)
 
 
+def _occlusion_geometry(args, all_pts, device):
+    """(occlusion mesh or None, occlusion points): the mesh (with the faces
+    of ``--occlusion_splats_path`` added) when one is given, else the splat
+    points or the scans' points."""
+    if args.occlusion_mesh_path:
+        mesh_pc = read_ply(args.occlusion_mesh_path)
+        verts, faces = [mesh_pc.positions], [mesh_pc.faces]
+        if args.occlusion_splats_path:
+            sp = read_ply(args.occlusion_splats_path)
+            if sp.faces is not None:
+                faces.append(sp.faces + len(np.concatenate(verts)))
+                verts.append(sp.positions)
+        mesh = build_occlusion_mesh(np.concatenate(verts), np.concatenate(faces), device=device)
+        print(f"occlusion mesh: {sum(len(v) for v in verts)} vertices, "
+              f"{sum(len(f) for f in faces)} faces")
+        return mesh, all_pts
+    if args.occlusion_splats_path:
+        return None, read_ply(args.occlusion_splats_path).positions
+    return None, all_pts
+
+
 def build_problem(args, params: Parameters, device, timer: StageTimer,
                   stats: dict | None = None):
-    """The set-up stages: scans, images and poses, the multi-resolution
-    cloud and the point levels. Returns (problem, state, scans)."""
+    """The set-up stages: scans, rigs, images and poses, the occlusion
+    geometry, the multi-resolution cloud and the point levels (from the
+    cache dir when it holds them). Returns (problem, state, scans, the rig
+    configurations of ``rigs.json`` or [])."""
     ignore = {int(v) for v in args.camera_ids_to_ignore.split(",") if v}
     with timer.stage("load_scans"):
         scans = load_scan_set(args.scan_alignment_path)
     state = load_colmap_state(args.state_path, scans.scale_factor, ignore, device=device)
+
+    # rigs: make the poses consistent before the groups copy them
+    rigs_path = os.path.join(args.state_path, "rigs.json")
+    rig_configs = read_rigs_json(rigs_path) if os.path.exists(rigs_path) else []
+    rig_infos = assign_rigs(state, rig_configs) if rig_configs else []
+    if rig_infos:
+        print(f"{len(rig_infos)} rig(s) assigned")
     groups, global_count = load_groups(state, args.image_base_path, device)
+    rig_extrinsics = mark_rig_groups(state, groups, rig_infos, device) if rig_infos else []
     print(f"{len(groups)} camera groups, {sum(g.num_images for g in groups)} images, "
           f"{global_count} image scales")
 
@@ -194,29 +273,42 @@ def build_problem(args, params: Parameters, device, timer: StageTimer,
     all_pts = np.concatenate(scan_pts)
     all_cols = np.concatenate(scan_cols)
     scan_idx = np.concatenate([np.full(len(p_), i, np.uint8) for i, p_ in enumerate(scan_pts)])
-    occl = all_pts
-    if args.occlusion_splats_path:
-        occl = read_ply(args.occlusion_splats_path).positions
+    occlusion_mesh, occl = _occlusion_geometry(args, all_pts, device)
 
     # multi-scale cloud: radii judged against all images, largest camera
     all_poses = SE3(torch.cat([g.poses.q for g in groups]),
                     torch.cat([g.poses.t for g in groups]))
     largest = max((g.camera for g in groups), key=lambda c: c.width * c.height)
-    with timer.stage("build_multiscale_cloud"):
-        levels_raw = build_multiscale_cloud(
-            all_pts, all_cols, scan_idx, all_poses, largest, global_count,
-            min_radius_bias=params.min_radius_bias,
-            merge_distance_factor=params.merge_distance_factor,
-            occlusion_threshold=params.occlusion_depth_threshold)
-    levels = []
-    with timer.stage("determine_point_neighbors"):
-        for i, lv in enumerate(levels_raw):
-            pl = build_photo_level(lv, k=params.point_neighbor_count, seed=i,
-                                   num_candidates=params.point_neighbor_candidate_count,
-                                   min_mean_diff=params.min_mean_intensity_difference_for_points,
-                                   device=device)
-            if pl is not None:
-                levels.append(pl)
+    cache_dir = args.multi_res_point_cloud_directory_path
+    cache_params = {"num_points": int(len(all_pts)), "scale_count": int(global_count),
+                    "num_images": int(sum(g.num_images for g in groups))}
+    levels_raw = load_multiscale_cache(cache_dir, cache_params) if cache_dir else None
+    if levels_raw is not None:
+        print("loaded multi-resolution point cloud from cache")
+    else:
+        with timer.stage("build_multiscale_cloud"):
+            levels_raw = build_multiscale_cloud(
+                all_pts, all_cols, scan_idx, all_poses, largest, global_count,
+                min_radius_bias=params.min_radius_bias,
+                merge_distance_factor=params.merge_distance_factor,
+                occlusion_threshold=params.occlusion_depth_threshold)
+        if cache_dir:
+            save_multiscale_cache(cache_dir, levels_raw, cache_params)
+    levels = load_photo_levels_cache(cache_dir, cache_params, device) if cache_dir else None
+    if levels is not None:
+        print("loaded point neighbors/descriptors from cache")
+    else:
+        levels = []
+        with timer.stage("determine_point_neighbors"):
+            for i, lv in enumerate(levels_raw):
+                pl = build_photo_level(lv, k=params.point_neighbor_count, seed=i,
+                                       num_candidates=params.point_neighbor_candidate_count,
+                                       min_mean_diff=params.min_mean_intensity_difference_for_points,
+                                       device=device)
+                if pl is not None:
+                    levels.append(pl)
+        if cache_dir:
+            save_photo_levels_cache(cache_dir, levels, cache_params)
     print(f"{len(levels)} point levels: " + ", ".join(str(len(l.points)) for l in levels))
     if stats is not None:
         stats.update(levels=[len(l.points) for l in levels], scales=[])
@@ -226,8 +318,9 @@ def build_problem(args, params: Parameters, device, timer: StageTimer,
         occlusion_points=torch.as_tensor(np.asarray(occl, np.float32), device=device),
         occlusion_radius=params.splat_radius, scale_count=global_count,
         max_valid_intensity=params.maximum_valid_intensity,
-        occlusion_depth_threshold=params.occlusion_depth_threshold)
-    return problem, state, scans
+        occlusion_depth_threshold=params.occlusion_depth_threshold,
+        rig_extrinsics=rig_extrinsics, occlusion_mesh=occlusion_mesh)
+    return problem, state, scans, rig_configs
 
 
 def make_optimizer(problem: PhotoProblem, args, params: Parameters,
@@ -235,30 +328,46 @@ def make_optimizer(problem: PhotoProblem, args, params: Parameters,
     return PhotometricOptimizer(
         problem, optimize_intrinsics=not args.fix_intrinsics,
         fixed_weight=params.fixed_residuals_weight,
-        variable_weight=params.variable_residuals_weight, timings=timings)
+        variable_weight=params.variable_residuals_weight,
+        depth_weight=params.depth_residuals_weight, timings=timings)
 
 
 def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> int:
     """Run the tool. ``timings``, if given, collects the optimizer's
     per-stage seconds (occlusion, visibility, hb_accumulate, ...); ``stats``
     receives the level sizes and, per scale, the observations and entry
-    cost of every iteration and the optimum cost."""
+    cost of every iteration, the optimum cost and the observations cache's
+    hit rate."""
     args, params = parse_args(argv)
     device = resolve_device(args.device)
-    _check_not_ported(args, params)
+    _check_not_ported(args)
     timer = StageTimer(device)
-    problem, state, scans = build_problem(args, params, device, timer, stats)
+    problem, state, scans, rig_configs = build_problem(args, params, device, timer, stats)
     global_count = problem.scale_count
     opt = make_optimizer(problem, args, params, timings)
     os.makedirs(args.output_folder_path, exist_ok=True)
+
+    if args.write_debug_point_clouds:
+        dbg_path = os.path.join(args.output_folder_path, "initial_point_cloud.ply")
+        if os.path.exists(dbg_path):
+            print("not writing initial point cloud: already exists")
+        else:
+            write_debug_colored_cloud(dbg_path, opt, problem.occlusion_points.cpu().numpy(),
+                                      args.image_base_path, state)
+            print(f"wrote {dbg_path}")
 
     def on_scale_done(o: PhotometricOptimizer, report):
         factor = 2.0 ** (-o.current_scale)
         out = os.path.join(args.output_folder_path, f"scale_{factor:g}_state")
         meta = {"optimum_cost": report.optimum_cost, "iterations": report.iterations,
                 "image_scale": o.current_scale, "scale_factor": scans.scale_factor}
+        if o.obs_cache_hit_log:
+            # the last core hit rate of the observations cache at this scale
+            meta["obs_cache_hit_rate"] = round(o.obs_cache_hit_log[-1], 5)
         meta.update(dict(line.split(" ", 1) for line in params.dump().splitlines()))
         export_state(out, o, state, meta)
+        if rig_configs:
+            write_rigs_json(os.path.join(out, "rigs.json"), rig_configs)
         print(f"scale {o.current_scale} done (cost {report.optimum_cost:.6f}) -> {out}")
 
     # coarse-to-fine schedule with optional resume window
@@ -267,6 +376,7 @@ def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> i
         start_scale = max(0, int(round(-np.log2(args.initial_scaling_factor))))
     end_scale = max(0, int(round(-np.log2(args.target_scaling_factor))))
     opt.current_scale = min(start_scale, global_count - 2)
+    first_scale_done = False
     while True:
         costs, observations = [], []
         with timer.stage(f"optimize_scale_{opt.current_scale}"):
@@ -277,7 +387,19 @@ def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> i
             stats["scales"].append(dict(scale=opt.current_scale, iteration_costs=costs,
                                         observations=observations,
                                         optimum_cost=report.optimum_cost,
-                                        iterations=report.iterations))
+                                        iterations=report.iterations,
+                                        obs_cache_hit_log=list(opt.obs_cache_hit_log)))
+        if args.cache_observations and not first_scale_done:
+            cache_path = (os.path.join(args.multi_res_point_cloud_directory_path,
+                                       "observations_cache.npz")
+                          if args.multi_res_point_cloud_directory_path else None)
+            with timer.stage("observations_cache"):
+                opt.build_observations_cache(save_path=cache_path, load_path=cache_path)
+            real, _ = opt.obs_cache.stats()
+            total = sum(len(l.points) for l in problem.levels) * problem.num_images
+            print(f"observations cache: {real} candidate rows "
+                  f"({100.0 * real / max(total, 1):.1f}% of dense)")
+        first_scale_done = True
         if opt.current_scale <= end_scale or not opt.next_scale():
             break
     print("stage timing:\n" + timer.summary())

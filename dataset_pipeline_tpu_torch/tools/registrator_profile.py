@@ -152,7 +152,7 @@ def main(argv=None) -> int:
             "--merge_distance_factor", str(c["merge_distance_factor"]), "--device", a.device])
         timer = StageTimer(device)
         stats = {}
-        problem, _, _ = reg.build_problem(args, params, device, timer, stats)
+        problem, _, _, _ = reg.build_problem(args, params, device, timer, stats)
     init = [(g.camera, g.poses) for g in problem.groups]
     result.update(scan_points=n_scan, levels=stats["levels"], setup_s=timer.totals, runs=[])
     run_iterations(problem, init, args, params, device, 1)  # warm-up: kernel build, caches

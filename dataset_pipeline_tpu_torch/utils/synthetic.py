@@ -12,6 +12,12 @@ from 1.5 cm to 25 cm, so points ~4 mm apart (the finest level at 5 m and
 f = 2800) keep contrast for the gradient filter while the coarse levels
 give the optimizer a wide basin.
 
+With ``rig`` (an se(3) tangent, the second camera's pose relative to the
+first), the images are synchronised sets of a two-camera rig: the first
+camera's images lie under ``cam0/``, the second's under ``cam1/`` at the
+fixed relative pose, each camera is a COLMAP camera of its own, and the state
+holds ``rigs.json`` with the two folders.
+
 For the ground-truth tools: ``surface_depth`` (the ray cast's depth at each
 pixel centre, the reference a ground-truth map is held to), ``surface_mesh``
 (a grid mesh of the surface, optionally with a rectangular hole) and
@@ -181,15 +187,28 @@ def scan_points(n: int, half_w: float, half_h: float, depth: float, seed: int, d
     return pts.cpu().numpy(), gray[:, None].expand(n, 3).cpu().numpy()
 
 
+def rig_poses(n_images: int, baseline: float, seed: int, rig, device=None) -> SE3:
+    """:func:`true_poses` with every odd image replaced by the rig's second
+    camera: ``SE3.exp(rig)`` composed with the pose of the image before it."""
+    truth = true_poses(n_images, baseline, seed, device)
+    rel = SE3.exp(torch.as_tensor(np.asarray(rig, np.float64), device=truth.q.device))
+    second = rel.compose(SE3(truth.q[0::2], truth.t[0::2]))
+    q, t = truth.q.clone(), truth.t.clone()
+    q[1::2], t[1::2] = second.q[: n_images // 2], second.t[: n_images // 2]
+    return SE3(q, t)
+
+
 def write_scene(root: str, width: int, height: int, f: float, n_images: int,
-                n_points: int, seed: int, device=None, baseline: float = 0.15):
+                n_points: int, seed: int, device=None, baseline: float = 0.15, rig=None):
     """Write a scene under ``root``: ``scan.ply`` + ``scene.mlp``,
-    ``state/`` (COLMAP text, perturbed poses) and ``images/*.pgm``.
+    ``state/`` (COLMAP text, perturbed poses) and ``images/*.pgm`` (with
+    ``rig``, ``images/cam0/`` and ``images/cam1/`` and ``state/rigs.json``).
     Returns the true poses (q (B,4), t (B,3) float64 numpy)."""
     dev = default_device(device)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
-    truth = true_poses(n_images, baseline, seed, dev)
+    truth = (true_poses(n_images, baseline, seed, dev) if rig is None
+             else rig_poses(n_images, baseline, seed, rig, dev))
     half_w, half_h = scan_extent(width, height, f, n_images, DEPTH, baseline)
     pts, cols = scan_points(n_points, half_w, half_h, DEPTH, seed + 1, dev)
     write_ply(os.path.join(root, "scan.ply"), PointCloud(pts, None, cols))
@@ -200,22 +219,28 @@ def write_scene(root: str, width: int, height: int, f: float, n_images: int,
     images = {}
     for i in range(n_images):
         img = render(truth.q[i], truth.t[i], width, height, f, cx, cy, DEPTH)
-        name = f"img{i:03d}.pgm"
+        name = f"img{i:03d}.pgm" if rig is None else f"cam{i % 2}/img{i // 2:03d}.pgm"
+        os.makedirs(os.path.dirname(os.path.join(root, "images", name)), exist_ok=True)
         write_pgm(os.path.join(root, "images", name),
                   torch.clamp(torch.round(img), 0, 255).to(torch.uint8).cpu().numpy())
         images[i + 1] = cio.ColmapImage(i + 1, init.q[i].cpu().numpy(), init.t[i].cpu().numpy(),
-                                        1, name)
-    cams = {1: cio.ColmapCamera(1, "PINHOLE", width, height,
-                                np.asarray([f, f, cx + 0.5, cy + 0.5]))}
+                                        1 if rig is None else 1 + i % 2, name)
+    params = np.asarray([f, f, cx + 0.5, cy + 0.5])
+    cams = {c: cio.ColmapCamera(c, "PINHOLE", width, height, params)
+            for c in ((1,) if rig is None else (1, 2))}
     cio.write_model(os.path.join(root, "state"), cio.ColmapModel(cams, images, {}))
+    if rig is not None:
+        cio.write_rigs_json(os.path.join(root, "state", "rigs.json"), [cio.ColmapRig(
+            1, [cio.ColmapRigCamera(1, "cam0"), cio.ColmapRigCamera(2, "cam1")])])
     return truth.q.cpu().numpy(), truth.t.cpu().numpy()
 
 
 def write_scene_at_density(root: str, width: int, height: int, f: float, n_images: int,
-                           baseline: float, scan_density: float, seed: int, device=None):
+                           baseline: float, scan_density: float, seed: int, device=None,
+                           rig=None):
     """:func:`write_scene` with the scan's size given as points per m^2 of
     the scanned area. Returns (scan points, true q, true t)."""
     half_w, half_h = scan_extent(width, height, f, n_images, DEPTH, baseline)
     n = int(scan_density * 4 * half_w * half_h)
     return (n,) + write_scene(root, width, height, f, n_images, n, seed, device=device,
-                              baseline=baseline)
+                              baseline=baseline, rig=rig)

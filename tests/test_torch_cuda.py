@@ -620,3 +620,91 @@ def test_ground_truth_creator_matches_cpu(cuda_device, tmp_path):
                 np.testing.assert_array_equal(a, b)
         with open(f"{outs['cuda']}/scan_alignment.mlp") as a, open(f"{outs['cpu']}/scan_alignment.mlp") as b:
             assert a.read() == b.read()
+
+
+# ---------------------------------------------------------------------------
+# Slice 4: the cleaner's kNN and filter, a small rig scene
+# ---------------------------------------------------------------------------
+
+
+def _slab(n, seed):
+    rng = np.random.RandomState(seed)
+    s = np.sqrt(12.0 / n)
+    return np.concatenate([rng.rand(n, 3) * np.asarray([4.0, 3.0, 0.002]),
+                           rng.rand(n // 100, 3) * np.asarray([4.0, 3.0, 8 * s])
+                           + np.asarray([0, 0, 4 * s])]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [21, 271])
+def test_knn_adaptive_on_the_card_matches_cpu(cuda_device, k):
+    """The adaptive kNN keeps a CUDA tensor on the card and returns the CPU
+    run's indices (the grid pass, repairs and brute force included)."""
+    from dataset_pipeline_tpu_torch.ops import knn
+
+    pts = torch.from_numpy(_slab(60_000, 1))
+    q = pts[::7]
+    stats = {}
+    d_gpu, i_gpu = knn.knn_adaptive(pts.to(cuda_device), q.to(cuda_device), k, stats=stats)
+    assert d_gpu.is_cuda and i_gpu.is_cuda
+    d_cpu, i_cpu = knn.knn_adaptive(pts, q, k)
+    assert stats["grid_cells"] < 2 ** 31
+    same = (i_gpu.cpu() == i_cpu).all(1)
+    # a row may differ only where two candidates tie within float32 rounding
+    assert float(same.double().mean()) >= 0.999
+    np.testing.assert_allclose(d_gpu.cpu().numpy(), d_cpu.numpy(), rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cleaner_mask_on_the_card_matches_cpu(cuda_device, tmp_path):
+    """``remove_outliers`` (device brute force below the switch) and the
+    adaptive filter: the CUDA masks equal the CPU masks but for threshold
+    ulps, and the cleaner CLI writes the same PLYs on both devices."""
+    from dataset_pipeline_tpu_torch.io.ply import PointCloud, write_ply
+    from dataset_pipeline_tpu_torch.ops import outlier
+    from dataset_pipeline_tpu_torch.tools import point_cloud_cleaner
+
+    pts = _slab(40_000, 2)
+    filters = [(30, 1.15), (20, 1.15)]
+    m_gpu = outlier.remove_outliers(pts, filters, device=cuda_device)
+    m_cpu = outlier.remove_outliers(pts, filters, device="cpu")
+    assert (m_gpu != m_cpu).sum() <= 4
+    a_gpu = outlier._outliers_from_adaptive_knn(torch.from_numpy(pts).to(cuda_device), 30, 1.15)
+    a_cpu = outlier._outliers_from_adaptive_knn(torch.from_numpy(pts), 30, 1.15)
+    assert int((a_gpu.cpu() != a_cpu).sum()) <= 4
+    for dev in ("cuda", "cpu"):
+        write_ply(str(tmp_path / f"{dev}.ply"), PointCloud(pts))
+        assert point_cloud_cleaner.main(["--in", str(tmp_path / f"{dev}.ply"), "--filter", "30,1.15",
+                                         "--device", dev]) == 0
+    diff = sum(open(tmp_path / f"cuda.{s}.ply", "rb").read() != open(tmp_path / f"cpu.{s}.ply",
+                                                                      "rb").read()
+               for s in ("inliers", "outliers"))
+    assert diff == 0 or (m_gpu != m_cpu).any()
+
+
+@pytest.mark.cuda
+def test_rig_scene_on_the_card_matches_cpu(cuda_device, tmp_path):
+    """A small rig scene (two sets of a two-camera rig, 480x320) through the
+    registrator CLI with the observations cache, on CUDA and on the CPU: the
+    states agree within 5e-7 per qvec / tvec entry; B3 ran on the card."""
+    from dataset_pipeline_tpu_torch import kernels
+    from dataset_pipeline_tpu_torch.io import colmap as cio
+    from dataset_pipeline_tpu_torch.tools import image_registrator
+    from dataset_pipeline_tpu_torch.utils import synthetic
+
+    root = tmp_path / "rig"
+    synthetic.write_scene(str(root), 480, 320, 2800.0 * 480 / 3072, 4, 6000, seed=7,
+                          device="cpu", rig=[-0.15, 0.0, 0.0, 0.0, 0.004, 0.0])
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        assert image_registrator.main([
+            "--scan_alignment_path", str(root / "scene.mlp"), "--image_base_path",
+            str(root / "images"), "--state_path", str(root / "state"), "--output_folder_path",
+            str(root / dev), "--max_iterations", "2", "--cache_observations", "--device", dev]) == 0
+        if dev == "cuda":
+            assert kernels.LAUNCHES["pyramid_sample_derivs"] > 0
+    for d in sorted(x for x in (root / "cpu").iterdir() if x.name.startswith("scale_")):
+        a, b = cio.read_model(str(d)), cio.read_model(str(root / "cuda" / d.name))
+        for i in a.images:
+            np.testing.assert_allclose(b.images[i].qvec, a.images[i].qvec, rtol=0, atol=5e-7)
+            np.testing.assert_allclose(b.images[i].tvec, a.images[i].tvec, rtol=0, atol=5e-7)

@@ -100,6 +100,26 @@ def test_three_clouds_moment_and_direct(use_moments):
     assert np.abs(got.poses[1][:3, 3] - got.poses[0][:3, 3]).max() < 0.05
 
 
+def test_get_result_global_T_cloud_matches_jax():
+    """Before ``run`` the initial pose, after it the result's, as the JAX
+    engine returns them."""
+    rng = np.random.RandomState(2)
+    pts = rng.uniform(-1, 1, (300, 3)).astype(np.float32)
+    nrm = rng.randn(300, 3).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    T = np.eye(4)
+    T[:3, 3] = [0.02, -0.01, 0.03]
+    engines = (JaxICP(), tpp.PointToPlaneICP(device="cpu"))
+    for icp in engines:
+        icp.add_point_cloud(pts, nrm, np.eye(4), fixed=True)
+        assert icp.add_point_cloud(pts, nrm, T) == 0
+        np.testing.assert_array_equal(icp.get_result_global_T_cloud(0), T)
+    ref, got = (icp.run(0.3, max_num_iterations=30) for icp in engines)
+    np.testing.assert_array_equal(engines[1].get_result_global_T_cloud(0), got.poses[0])
+    np.testing.assert_allclose(engines[1].get_result_global_T_cloud(0),
+                               engines[0].get_result_global_T_cloud(0), atol=PORT_TOL)
+
+
 def test_single_movable_cloud_returns_early():
     """C = 1 (no fixed cloud): nothing to solve, n_var == 0."""
     icp = tpp.PointToPlaneICP(device="cpu")
