@@ -271,7 +271,11 @@ def _gram(x, y):
     batch entries, summed afterwards: one (a x M)(M x b) product per image
     with M ~ 10^6 and a, b <= 10 leaves cuBLAS a handful of output tiles, so
     it ran on a few SMs (~18 ms per product on the H100, 75 % of the
-    registrator's device time)."""
+    registrator's device time). Operands of two float dtypes meet in the
+    wider one."""
+    if x.dtype != y.dtype:
+        dt = torch.promote_types(x.dtype, y.dtype)
+        x, y = x.to(dt), y.to(dt)
     nb, M, a = x.shape
     S = M // _GRAM_ROWS
     n = S * _GRAM_ROWS

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from dataset_pipeline_tpu_torch import default_device
-from dataset_pipeline_tpu_torch.io.colmap import ColmapRig
+from dataset_pipeline_tpu_torch.io.colmap import ColmapRig, read_rigs_json
 from dataset_pipeline_tpu_torch.io.state import ImageState, ModelState
 from dataset_pipeline_tpu_torch.models.lie import SE3, quat_from_matrix, quat_to_matrix
 
@@ -214,3 +214,13 @@ def mark_rig_groups(state, groups, rig_infos, device=None):
                 g.ref_group = ref_gi
                 g.ref_slots = np.asarray(slots, np.int32)
     return rig_extrinsics
+
+
+def assign_rigs_from_state_dir(state: ModelState, state_dir: str) -> List[RigInfo]:
+    """Read ``rigs.json`` beside a COLMAP state (if present) and assign the
+    rigs: :func:`assign_rigs`, which makes the state's poses rig-consistent,
+    so it runs before the image groups copy them. [] without ``rigs.json``."""
+    rigs_path = os.path.join(state_dir, "rigs.json")
+    if not os.path.exists(rigs_path):
+        return []
+    return assign_rigs(state, read_rigs_json(rigs_path))

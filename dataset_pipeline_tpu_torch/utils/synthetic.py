@@ -18,6 +18,11 @@ camera's images lie under ``cam0/``, the second's under ``cam1/`` at the
 fixed relative pose, each camera is a COLMAP camera of its own, and the state
 holds ``rigs.json`` with the two folders.
 
+With ``n_scans=2`` the surface is scanned twice: scan 1 is a sampling of its
+own (another seed) of the same surface, its points written in the true frame
+and its ``.mlp`` pose the known error ``SE3.exp(scan1_error)`` (default
+``SCAN1_ERROR``), which a joint bundle adjustment has to undo.
+
 For the ground-truth tools: ``surface_depth`` (the ray cast's depth at each
 pixel centre, the reference a ground-truth map is held to), ``surface_mesh``
 (a grid mesh of the surface, optionally with a rectangular hole) and
@@ -52,6 +57,9 @@ _ROWS_PER_PASS = 256  # image rows ray cast per pass (bounds the temporaries)
 # all levels however dense the scan: < 20 M observations. Hence factor 3.
 DSLR = dict(width=3072, height=2048, f=2800.0, n_images=16, baseline=0.2,
             scan_density=200_000, merge_distance_factor=3.0)
+# the second scan's .mlp pose error (se(3) tangent [t | w]): (4, -3, 2) mm and
+# a 1.97 mrad rotation
+SCAN1_ERROR = (0.004, -0.003, 0.002, 0.0012, -0.0010, 0.0012)
 # (amplitude, wavelength x [m], wavelength y [m], phase)
 _TEXTURE = ((40.0, 0.043, 0.051, 0.3), (30.0, 0.093, -0.11, 1.1),
             (25.0, 0.25, 0.21, 2.0), (15.0, 0.017, 0.015, 0.7))
@@ -198,12 +206,23 @@ def rig_poses(n_images: int, baseline: float, seed: int, rig, device=None) -> SE
     return SE3(q, t)
 
 
+def scan1_matrix(scan1_error=SCAN1_ERROR) -> np.ndarray:
+    """(4,4) float64 ``.mlp`` pose of scan 1: ``SE3.exp(scan1_error)``."""
+    return SE3.exp(torch.as_tensor(np.asarray(scan1_error, np.float64))).matrix().numpy()
+
+
 def write_scene(root: str, width: int, height: int, f: float, n_images: int,
-                n_points: int, seed: int, device=None, baseline: float = 0.15, rig=None):
+                n_points: int, seed: int, device=None, baseline: float = 0.15, rig=None,
+                n_scans: int = 1, scan1_error=SCAN1_ERROR):
     """Write a scene under ``root``: ``scan.ply`` + ``scene.mlp``,
     ``state/`` (COLMAP text, perturbed poses) and ``images/*.pgm`` (with
     ``rig``, ``images/cam0/`` and ``images/cam1/`` and ``state/rigs.json``).
-    Returns the true poses (q (B,4), t (B,3) float64 numpy)."""
+    With ``n_scans=2`` also ``scan1.ply`` (``n_points`` samples of the same
+    surface from seed ``seed + 3``, in the true frame) whose ``.mlp`` pose is
+    ``scan1_matrix(scan1_error)``. Returns the true poses (q (B,4), t (B,3)
+    float64 numpy)."""
+    if n_scans not in (1, 2):
+        raise ValueError(f"n_scans must be 1 or 2; got {n_scans}")
     dev = default_device(device)
     os.makedirs(os.path.join(root, "images"), exist_ok=True)
     cx, cy = (width - 1) / 2.0, (height - 1) / 2.0
@@ -212,8 +231,12 @@ def write_scene(root: str, width: int, height: int, f: float, n_images: int,
     half_w, half_h = scan_extent(width, height, f, n_images, DEPTH, baseline)
     pts, cols = scan_points(n_points, half_w, half_h, DEPTH, seed + 1, dev)
     write_ply(os.path.join(root, "scan.ply"), PointCloud(pts, None, cols))
-    write_meshlab_project(os.path.join(root, "scene.mlp"),
-                          [MeshInfo("scan", "scan.ply", np.eye(4))])
+    infos = [MeshInfo("scan", "scan.ply", np.eye(4))]
+    if n_scans == 2:
+        pts1, cols1 = scan_points(n_points, half_w, half_h, DEPTH, seed + 3, dev)
+        write_ply(os.path.join(root, "scan1.ply"), PointCloud(pts1, None, cols1))
+        infos.append(MeshInfo("scan1", "scan1.ply", scan1_matrix(scan1_error)))
+    write_meshlab_project(os.path.join(root, "scene.mlp"), infos)
     rng = np.random.RandomState(seed + 2)
     init = SE3.exp(torch.as_tensor(POSE_NOISE * rng.randn(n_images, 6), device=dev)).compose(truth)
     images = {}
@@ -237,10 +260,11 @@ def write_scene(root: str, width: int, height: int, f: float, n_images: int,
 
 def write_scene_at_density(root: str, width: int, height: int, f: float, n_images: int,
                            baseline: float, scan_density: float, seed: int, device=None,
-                           rig=None):
-    """:func:`write_scene` with the scan's size given as points per m^2 of
-    the scanned area. Returns (scan points, true q, true t)."""
+                           rig=None, n_scans: int = 1):
+    """:func:`write_scene` with the scans' size given as points per m^2 of
+    the scanned area, shared among ``n_scans`` scans. Returns (points per
+    scan, true q, true t)."""
     half_w, half_h = scan_extent(width, height, f, n_images, DEPTH, baseline)
-    n = int(scan_density * 4 * half_w * half_h)
+    n = int(scan_density * 4 * half_w * half_h) // n_scans
     return (n,) + write_scene(root, width, height, f, n_images, n, seed, device=device,
-                              baseline=baseline, rig=rig)
+                              baseline=baseline, rig=rig, n_scans=n_scans)

@@ -248,3 +248,46 @@ def test_project_fused_matches_jax_inside_jit():
                                       jpix)
         np.testing.assert_array_equal(tcm.project(tc, torch.from_numpy(pts))[0].numpy(),
                                       np.asarray(jcm.project(jc, jnp.asarray(pts))[0]))
+
+
+def test_fisheye_projection_after_the_icp_tests_matches_jax():
+    """C.1 (open): the fisheye case above failed, a few times, when it ran
+    after ``tests/test_icp.py`` or ``test_ref_baseline.py`` in one loaded
+    process, with the points of the second half, 2000-3999, off by up to
+    0.065 px. Torch computes a float32 ``atan`` of 4000 points with MKL's
+    ``vsAtan`` in chunks of 2048 across its intra-op threads, so that half
+    is the chunk its second thread computes. Here the ICP tests' JAX work
+    (their H, b at the Pallas test's size) runs first; then the port
+    projects five times on torch's threads (two, as this file sets them),
+    each projection bit-equal to one made on the calling thread alone
+    before that work, and within 1e-4 px of JAX."""
+    from dataset_pipeline_tpu.icp.point_to_plane import _icp_hb_cost
+
+    model = "FISHEYE_POLYNOMIAL_2_TANGENTIAL_2"
+    pts = _points(sum(map(ord, model)))
+    tc = tcm.make_camera(model, W, H, MILD[model], device="cpu")
+    threads = torch.get_num_threads()
+    assert threads >= 2
+    torch.set_num_threads(1)
+    try:
+        before = tcm.project(tc, torch.from_numpy(pts))[0].numpy()
+    finally:
+        torch.set_num_threads(threads)
+    rng = np.random.RandomState(0)
+    m = 3000
+    ps = rng.randn(m, 3).astype(np.float32)
+    ns = rng.randn(m, 3).astype(np.float32)
+    ns /= np.linalg.norm(ns, axis=1, keepdims=True)
+    q = np.tile(np.asarray([1.0, 0, 0, 0], np.float32), (2, 1))
+    out = _icp_hb_cost(jnp.asarray(q), jnp.zeros((2, 3), jnp.float32), jnp.asarray(ps),
+                       jnp.asarray(ns), jnp.asarray(ps + 0.01), jnp.asarray(ns),
+                       jnp.zeros(m, jnp.int32), jnp.ones(m, jnp.int32), jnp.ones(m, jnp.float32), 2)
+    np.asarray(out[0])
+    jc = jcm.make_camera(model, W, H, MILD[model])
+    jpix, jok = (np.asarray(a) for a in jcm.project(jc, jnp.asarray(pts)))
+    for _ in range(5):
+        tpix, tok = (a.numpy() for a in tcm.project(tc, torch.from_numpy(pts)))
+        np.testing.assert_array_equal(tpix, before)
+    both = jok & tok
+    assert both.sum() > 500
+    np.testing.assert_allclose(tpix[both], jpix[both], rtol=PIX_RTOL, atol=PIX_ATOL)

@@ -708,3 +708,62 @@ def test_rig_scene_on_the_card_matches_cpu(cuda_device, tmp_path):
         for i in a.images:
             np.testing.assert_allclose(b.images[i].qvec, a.images[i].qvec, rtol=0, atol=5e-7)
             np.testing.assert_allclose(b.images[i].tvec, a.images[i].tvec, rtol=0, atol=5e-7)
+
+
+# ---------------------------------------------------------------------------
+# Slice 5: joint multi-scene BA
+# ---------------------------------------------------------------------------
+
+
+def _joint_ba_both(root, rig):
+    """The joint-BA CLI on CUDA and on the CPU over small two-scan scenes
+    (two plain scenes, or one scene of a two-camera rig); returns the two
+    output dirs and the card run's B3 launches."""
+    from dataset_pipeline_tpu_torch import kernels
+    from dataset_pipeline_tpu_torch.tools import joint_ba
+    from dataset_pipeline_tpu_torch.utils import synthetic
+
+    args = []
+    for si in range(1 if rig else 2):
+        d = root / f"scene{si}"
+        synthetic.write_scene(str(d), 320, 240, 2800.0 * 320 / 3072, 4 if rig else 2, 6000,
+                              seed=9 + 10 * si, device="cpu", n_scans=2,
+                              rig=[-0.06, 0.0, 0.0, 0.0, 0.004, 0.0] if rig else None)
+        args += ["--scene", f"{d}/scene.mlp,{d}/state,{d}/images"]
+    launches = None
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        assert joint_ba.main(args + ["--output_folder_path", str(root / dev), "--max_iterations",
+                                     "2", "--device", dev]) == 0
+        if dev == "cuda":
+            launches = dict(kernels.LAUNCHES)
+    return root / "cuda", root / "cpu", launches, len(args) // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rig", [False, True])
+def test_joint_ba_on_the_card_matches_cpu(cuda_device, tmp_path, rig):
+    """A small joint-BA run on CUDA and on the CPU: the .mlp entries, qvec
+    and tvec within 5e-7, intrinsics within 1e-3 px, the cost trace within
+    1e-4 relative (the registrator's limits); B3 ran on the card in both
+    modes."""
+    from dataset_pipeline_tpu_torch.io import colmap as cio
+    from dataset_pipeline_tpu_torch.io.meshlab import read_meshlab_project
+
+    a_dir, b_dir, launches, n = _joint_ba_both(tmp_path, rig)
+    assert launches["pyramid_sample_derivs"] > 0 and launches["pyramid_sample_value"] > 0
+    for si in range(n):
+        a, b = a_dir / f"scene_{si}", b_dir / f"scene_{si}"
+        for x, y in zip(read_meshlab_project(str(a / "scan_alignment.mlp")),
+                        read_meshlab_project(str(b / "scan_alignment.mlp"))):
+            np.testing.assert_allclose(x.global_T_mesh, y.global_T_mesh, rtol=0, atol=5e-7)
+        ma, mb = cio.read_model(str(a)), cio.read_model(str(b))
+        for i in ma.images:
+            np.testing.assert_allclose(ma.images[i].qvec, mb.images[i].qvec, rtol=0, atol=5e-7)
+            np.testing.assert_allclose(ma.images[i].tvec, mb.images[i].tvec, rtol=0, atol=5e-7)
+        for c in ma.cameras:
+            np.testing.assert_allclose(ma.cameras[c].params, mb.cameras[c].params, rtol=0,
+                                       atol=1e-3)
+        ca, cb = (np.asarray(open(x / "metadata.txt").read().splitlines()[2].split()[1:], float)
+                  for x in (a, b))
+        np.testing.assert_allclose(ca, cb, rtol=1e-4)
