@@ -105,6 +105,20 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   (``--icp_weight 1e6``) on the card, where each scene's scan-1 error must
   fall below half its start.
 
+- Slice 6, the multi-device layer (B4a, B2 and B3 inside each rank; one
+  card, so no scaling number): ``sharded_icp_hb`` and ``sharded_moment_gram``
+  at 8M correspondences at world 1 over NCCL and at world 2 over Gloo (two
+  ranks sharing the card; NCCL takes one rank per card), every rank held
+  against the one-process B4a / B2 results at the JAX tests' bounds, and the
+  LM cost derived from each B2 Gram within 1e-4 of B4a's direct cost; the
+  DSLR registrator through the CLI at ``--devices 2`` from the cloud cache
+  the DSLR phase wrote, against the one-rank run of the same arguments
+  (qvec 5e-6, tvec 5e-5, optimum cost 1e-5 relative), each rank's B3
+  launches, seconds per iteration and per collective; the small plain and
+  rig joint-BA scenes of slice 5 at ``--devices 2`` against their one-rank
+  runs (the registrator's limits); ``entry.dryrun_multichip(1)`` (NCCL) and
+  ``(2)`` (Gloo). The ranks' kernel launches are counted in the parent.
+
 It fails (non-zero exit, no result line) if CUDA is absent, a kernel does
 not build, launch or agree, a path did not launch each of its kernels, the
 LM ladders launch B1 more than twice per iteration, the
@@ -112,7 +126,8 @@ alignment does not remove the initial offset, the registration does not
 lower the cost and the pose error, the engines of the A/B end at different
 poses, the repeat slope and the event time of the moment pass disagree, the
 read bandwidth or a probe's rate comes out above the card's stated peak, the
-brick path and B3 disagree, or a check of the ground-truth, slice-4 or joint-BA phase misses. The last line is
+brick path and B3 disagree, or a check of the ground-truth, slice-4, joint-BA or
+multi-device phase misses (a rank that fails fails the run). The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and the one before that the per-kernel JSON.
 """
@@ -2748,6 +2763,275 @@ def run_slice5(torch, kernels, synthetic, cio, quat_to_matrix_np, tps, root: str
     return res, res["launches"], b3_at
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: the multi-device layer (B4a, B2 and B3 inside each rank). The smoke
+# needs one card, and NCCL takes one rank per card, so this shows the NCCL path
+# at world size 1 and the sharded logic with two ranks sharing the card over
+# Gloo; neither is a scaling number.
+# ---------------------------------------------------------------------------
+
+S6_ICP_CLOUDS, S6_REPS = 2, 5
+S6_H_RTOL, S6_H_ATOL, S6_COST_RTOL = 1e-4, 1e-3, 1e-5  # tests/test_parallel.py:45-47
+S6_GRAM_RTOL = 1e-5  # and atol 1e-5 max|P| (tests/test_parallel.py:182-183)
+S6_MOMENT_COST_RTOL = 1e-4  # tests/test_parallel.py:202-203
+S6_Q_TOL, S6_T_TOL = 5e-6, 5e-5  # mesh vs one rank (tests/test_parallel_photometric.py:102-103)
+S6_REG_COST_RTOL = 1e-5
+S6_ICP_KERNELS = ("gn_rows", "moment_gram")
+
+
+def host_seconds(torch, fn, reps: int) -> float:
+    """Seconds per call of ``fn`` on the host clock, the card synchronized
+    around the calls (a collective synchronizes the ranks), after one call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def slice6_icp_rank(m: int, seed: int) -> dict:
+    """One rank of the sharded ICP normal equations: its share of the rows
+    through ``sharded_icp_hb`` (B4a) and ``sharded_moment_gram`` (B2)."""
+    import torch
+
+    from dataset_pipeline_tpu_torch.entry import sharded_icp_problem
+    from dataset_pipeline_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_data_mesh, replicated, shard_rows)
+    from dataset_pipeline_tpu_torch.parallel.normal_equations import (
+        sharded_icp_hb, sharded_moment_gram)
+
+    initialize_distributed(device="cuda")
+    mesh = make_data_mesh(device="cuda")
+    q, t, *rows = sharded_icp_problem(m, S6_ICP_CLOUDS, seed)
+    q, t = replicated(mesh, q), replicated(mesh, t)
+    rows = [shard_rows(mesh, x) for x in rows]
+    ps, ns, pt, nt, _, _, w = rows
+    H, b, cost = sharded_icp_hb(mesh, q, t, *rows, S6_ICP_CLOUDS)
+    P = sharded_moment_gram(mesh, ps, ns, pt, nt, w)
+    calls, secs = mesh.calls, mesh.seconds
+    icp_s = host_seconds(torch, lambda: sharded_icp_hb(mesh, q, t, *rows, S6_ICP_CLOUDS), S6_REPS)
+    gram_s = host_seconds(torch, lambda: sharded_moment_gram(mesh, ps, ns, pt, nt, w), S6_REPS)
+    return {"backend": mesh.backend, "world": mesh.size, "rows": int(ps.shape[0]),
+            "H": H.cpu().numpy(), "b": b.cpu().numpy(), "cost": float(cost), "P": P.cpu().numpy(),
+            "icp_hb_s": icp_s, "moment_gram_s": gram_s,
+            "collective_calls": mesh.calls, "collective_s_per_call": mesh.seconds / mesh.calls,
+            "first_pass_collective_s": secs / calls}
+
+
+def run_sharded_icp(torch, kernels, gn, launch, pack_group_data, sharded_icp_problem,
+                    hb_cost_from_moments):
+    """The ICP normal equations at 8M correspondences (bench.py's headline
+    size, two clouds) sharded at world 1 over NCCL and at world 2 over Gloo,
+    each held against the one-process B4a and B2 results at JAX's bounds;
+    and the LM cost that ``hb_cost_from_moments`` derives from each B2 Gram
+    against B4a's direct cost of the same rows as one cloud pair, at JAX's
+    1e-4 relative (tests/test_parallel.py:202-203; the plain B2 misses it on
+    the CPU, ROADMAP C.3)."""
+    m, seed = CORR_TOTAL, 12
+    q, t, *rows = sharded_icp_problem(m, S6_ICP_CLOUDS, seed)
+    dev = [torch.as_tensor(x, device="cuda") for x in rows]
+    qd, td = torch.as_tensor(q, device="cuda"), torch.as_tensor(t, device="cuda")
+    H1, b1, c1 = (x.cpu().numpy() for x in gn.icp_hb_cost_rows(qd, td, *dev, S6_ICP_CLOUDS))
+    ps, ns, pt, nt, sid, _, w = dev
+    c_pair = float(gn.icp_hb_cost_rows(qd, td, ps, ns, pt, nt, torch.zeros_like(sid),
+                                       torch.ones_like(sid), w, S6_ICP_CLOUDS)[2])
+    data, _ = pack_group_data([dict(ps=ps, ns=ns, pt=pt, nt=nt, w=w)], 49152,
+                              rows=13, device="cuda")
+    P1 = gn.moment_gram_partials(data, 49152)[0].sum(0, dtype=torch.float64).cpu().numpy()
+
+    def moment_cost_gap(P):
+        cost = hb_cost_from_moments([P], [(0, 1)], q.astype(np.float64), t.astype(np.float64),
+                                    S6_ICP_CLOUDS)[2]
+        return abs(float(cost) - c_pair) / abs(c_pair)
+
+    moment_gaps = {"one_process": moment_cost_gap(P1)}
+    one_icp_s = host_seconds(torch, lambda: gn.icp_hb_cost_rows(qd, td, *dev, S6_ICP_CLOUDS), S6_REPS)
+    one_gram_s = host_seconds(torch, lambda: gn.moment_gram_partials(data, 49152)[0]
+                              .sum(0, dtype=torch.float64), S6_REPS)
+    del dev, ps, ns, pt, nt, sid, w, data
+    torch.cuda.empty_cache()
+    res, by_path = {"one_process": {"icp_hb_s": one_icp_s, "moment_gram_s": one_gram_s}}, {}
+    for world, want in ((1, "nccl"), (2, "gloo")):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ranks = launch(slice6_icp_rank, world, (m, seed), "cuda")
+        wall = time.perf_counter() - t0
+        launches = {k: kernels.LAUNCHES[k] for k in S6_ICP_KERNELS}
+        by_path[f"sharded_icp_world{world}"] = launches
+        gaps = []
+        for r, (o, _) in enumerate(ranks):
+            if o["backend"] != want:
+                fail(f"sharded ICP at world {world}: rank {r} chose {o['backend']}, not {want}")
+            dH, db = (float(np.max(np.abs(a - e) / (S6_H_ATOL + S6_H_RTOL * np.abs(e))))
+                      for a, e in ((o["H"], H1), (o["b"], b1)))
+            dc = abs(o["cost"] - float(c1)) / abs(float(c1))
+            dP = float(np.max(np.abs(o["P"] - P1) / (S6_GRAM_RTOL * np.abs(P1)
+                                                       + 1e-5 * np.abs(P1).max())))
+            gaps.append({"H": dH, "b": db, "cost_rel": dc, "P": dP})
+            moment_gaps[f"world{world}_rank{r}"] = moment_cost_gap(o["P"])
+            if not (dH <= 1 and db <= 1 and dc <= S6_COST_RTOL and dP <= 1):
+                fail(f"sharded ICP at world {world}, rank {r}: H {dH:.3g} b {db:.3g} (share of the "
+                     f"bound), cost rel {dc:.3e}, Gram {dP:.3g} (share of the bound)")
+        res[f"world{world}"] = {
+            "backend": want, "wall_s": wall, "launches": launches, "gaps": gaps,
+            "per_rank": [{k: o[k] for k in ("rows", "icp_hb_s", "moment_gram_s", "collective_calls",
+                                             "collective_s_per_call", "first_pass_collective_s")}
+                         for o, _ in ranks]}
+        print(f"sharded ICP normal equations, {m} correspondences, world {world} over {want}: "
+              f"wall {wall:.1f} s; per rank (rows, s per sharded_icp_hb, s per sharded_moment_gram, "
+              f"s per collective) "
+              + "; ".join(f"{o['rows']} {o['icp_hb_s']:.4f} {o['moment_gram_s']:.4f} "
+                          f"{o['collective_s_per_call']:.2e}" for o, _ in ranks)
+              + f"; one process {one_icp_s:.4f} / {one_gram_s:.4f} s; gaps {gaps}; launches {launches}")
+        if any(v <= 0 for v in launches.values()):
+            fail(f"sharded ICP at world {world} did not launch B4a and B2: {launches}")
+    res["moment_cost_rel"] = moment_gaps
+    print(f"LM cost from the B2 moment Gram vs B4a's direct cost ({m} rows as one cloud pair, "
+          f"bound {S6_MOMENT_COST_RTOL}): " + ", ".join(f"{k} {v:.3e}" for k, v in moment_gaps.items()))
+    if max(moment_gaps.values()) > S6_MOMENT_COST_RTOL:
+        fail(f"the moment-derived LM cost is off the direct cost: {moment_gaps}")
+    return res, by_path
+
+
+def run_registrator_devices2(torch, kernels, image_registrator, cio, root: str, extra, label: str):
+    """The registrator through the CLI at ``--devices 2`` (two ranks sharing
+    the card, over Gloo) beside the one-rank run of the same arguments: poses
+    within the mesh-vs-sequential bounds of the JAX tests, the optimum cost
+    within 1e-5 relative; every rank launches B3."""
+    runs = {}
+    for n in (1, 2):
+        out = os.path.join(root, f"out_devices{n}")
+        timings, stats = {}, {}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = image_registrator.main(registrator_args(root, out, "cuda", [*extra, "--devices", str(n)]),
+                                    timings=timings, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"{label}: the registrator at --devices {n} returned {rc}")
+        iters = stats["scales"][-1]["iterations"]
+        runs[n] = {"out": out, "wall_s": wall, "launches": b3_launches(kernels),
+                   "s_per_iteration": sum(timings.values()) / iters, "iterations": iters,
+                   "hb_s_per_iteration": timings.get("hb_accumulate", 0.0) / iters, "stats": stats}
+    scales, (dq, dt, dp, dc), _ = compare_registrator_states(runs[1]["out"], runs[2]["out"],
+                                                             os.path.join(root, "state"), cio)
+    ranks = []
+    for r, rk in enumerate(runs[2]["stats"]["ranks"]):
+        it = runs[2]["iterations"]
+        col = rk["collectives"]
+        ranks.append({"backend": col["backend"], "s_per_iteration": sum(rk["timings"].values()) / it,
+                      "hb_s_per_iteration": rk["timings"].get("hb_accumulate", 0.0) / it,
+                      "collective_calls": col["calls"],
+                      "collective_s_per_call": col["seconds"] / max(col["calls"], 1),
+                      "b3": {k: rk["launches"][k] for k in REG_KERNELS}})
+    res = {"scales": scales, "gaps": {"qvec": dq, "tvec": dt, "params": dp, "cost_rel": dc},
+           "one_rank": {k: runs[1][k] for k in ("wall_s", "s_per_iteration", "hb_s_per_iteration")},
+           "devices2": {"wall_s": runs[2]["wall_s"], "launches": runs[2]["launches"], "ranks": ranks}}
+    print(f"{label} at --devices 2 (over {ranks[0]['backend']}, one card) vs one rank: qvec {dq:.3e} "
+          f"tvec {dt:.3e} params {dp:.3e} px optimum cost rel {dc:.3e}; wall {runs[2]['wall_s']:.1f} "
+          f"s vs {runs[1]['wall_s']:.1f} s; s/iteration per rank "
+          + ", ".join(f"{x['s_per_iteration']:.3f} (H,b {x['hb_s_per_iteration']:.3f}, "
+                      f"{x['collective_calls']} collectives at {x['collective_s_per_call']:.2e} s, "
+                      f"B3 {x['b3']})" for x in ranks)
+          + f" vs one rank {runs[1]['s_per_iteration']:.3f} (H,b {runs[1]['hb_s_per_iteration']:.3f})")
+    if not (dq <= S6_Q_TOL and dt <= S6_T_TOL and dc <= S6_REG_COST_RTOL and dp <= REG_PARAM_TOL):
+        fail(f"{label}: --devices 2 and one rank differ beyond the mesh bounds")
+    for r, x in enumerate(ranks):
+        if x["backend"] != "gloo" or x["b3"]["pyramid_sample_derivs"] <= 0:
+            fail(f"{label}: rank {r} ran over {x['backend']} with B3 launches {x['b3']}")
+    return res
+
+
+def run_joint_ba_devices2(torch, kernels, jtool, cio, root: str, rig: bool):
+    """A small joint-BA scene of ``run_joint_ba_small`` at ``--devices 2``
+    (two ranks sharing the card over Gloo), held against its one-rank CUDA
+    run within the registrator's limits."""
+    label = "rig" if rig else "plain"
+    scenes = sorted(d for d in os.listdir(root) if d.startswith("scene"))
+    args = scene_args([(os.path.join(root, d), None, None) for d in scenes])
+    out = os.path.join(root, "cuda_devices2")
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    if jtool.main(args + ["--output_folder_path", out, "--max_iterations", str(JBA_ITERATIONS),
+                          "--device", "cuda", "--devices", "2"]) != 0:
+        fail(f"joint-BA {label} scene at --devices 2 failed")
+    wall = time.perf_counter() - t0
+    launches = b3_launches(kernels)
+    dm, dq, dt, dp, dc = compare_joint_ba_outputs(os.path.join(root, "cuda"), out, len(scenes), cio)
+    print(f"joint-BA {label} scene at --devices 2 vs one rank: .mlp {dm:.3e} qvec {dq:.3e} tvec "
+          f"{dt:.3e} params {dp:.3e} px cost rel {dc:.3e}; wall {wall:.1f} s; launches {launches}")
+    if not (dm <= REG_T_TOL and dq <= REG_Q_TOL and dt <= REG_T_TOL and dp <= REG_PARAM_TOL
+            and dc <= REG_COST_RTOL):
+        fail(f"joint-BA {label} scene: --devices 2 and one rank differ beyond the registrator's limits")
+    if launches["pyramid_sample_derivs"] <= 0 or launches["pyramid_sample_value"] <= 0:
+        fail(f"joint-BA {label} scene at --devices 2: B3 launches {launches}")
+    return {"wall_s": wall, "launches": launches,
+            "gaps": {"mlp": dm, "qvec": dq, "tvec": dt, "params": dp, "cost_rel": dc}}
+
+
+def run_dryruns(torch, kernels, entry):
+    """``dryrun_multichip(1)`` (NCCL) and ``dryrun_multichip(2)`` (Gloo,
+    one card): every stage finite on every rank, the ranks agree."""
+    res, by_path = {}, {}
+    for n, want in ((1, "nccl"), (2, "gloo")):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        ranks = entry.dryrun_multichip(n, "cuda")
+        wall = time.perf_counter() - t0
+        by_path[f"dryrun_{n}"] = {k: kernels.LAUNCHES[k] for k in ("gn_rows", "moment_gram",
+                                                                    *REG_KERNELS)}
+        costs = [{k: v for k, v in r.items() if k.endswith("cost")} for r in ranks]
+        print(f"dryrun_multichip({n}): {wall:.1f} s over {[r['backend'] for r in ranks]}; "
+              f"{[r['collective_calls'] for r in ranks]} collectives at "
+              f"{[r['collective_seconds'] / r['collective_calls'] for r in ranks]} s; rank 0 {costs[0]}; "
+              f"launches {by_path[f'dryrun_{n}']}")
+        if any(r["backend"] != want for r in ranks) or any(c != costs[0] for c in costs):
+            fail(f"dryrun_multichip({n}): backends {[r['backend'] for r in ranks]}, costs {costs}")
+        res[f"ranks{n}"] = {"wall_s": wall, "backend": want, "costs": costs[0],
+                            "collective_s_per_call": [r["collective_seconds"] / r["collective_calls"]
+                                                      for r in ranks]}
+    return res, by_path
+
+
+def run_slice6(torch, kernels, image_registrator, entry, pack_group_data, gn, cio, root: str):
+    """The multi-device phase: the sharded ICP normal equations at 8M
+    correspondences, the DSLR registrator at ``--devices 2`` from the cloud
+    cache the DSLR phase wrote, the small joint-BA scenes of the slice-5
+    phase at ``--devices 2``, and both dry runs. Returns (results, launches
+    by path)."""
+    from dataset_pipeline_tpu_torch.icp.moments import hb_cost_from_moments
+    from dataset_pipeline_tpu_torch.parallel.mesh import launch
+    from dataset_pipeline_tpu_torch.tools import joint_ba as jtool
+
+    t_all = time.perf_counter()
+    torch.cuda.empty_cache()
+    res, by_path = run_sharded_icp(torch, kernels, gn, launch, pack_group_data,
+                                   entry.sharded_icp_problem, hb_cost_from_moments)
+    t0 = time.perf_counter()
+    c = ["--initial_scaling_factor", "1", "--target_scaling_factor", "1", "--merge_distance_factor",
+         "3.0", "--multi_res_point_cloud_directory_path", os.path.join(root, "dslr", "cache")]
+    res["registrator_dslr"] = run_registrator_devices2(torch, kernels, image_registrator, cio,
+                                                       os.path.join(root, "dslr"), c, "DSLR")
+    by_path["registrator_devices2"] = res["registrator_dslr"]["devices2"]["launches"]
+    torch.cuda.empty_cache()
+    print(f"DSLR at --devices 2: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for rig, sub in ((False, "jba_small"), (True, "jba_rig")):
+        key = f"joint_ba_{'rig' if rig else 'plain'}_devices2"
+        res[key] = run_joint_ba_devices2(torch, kernels, jtool, cio, os.path.join(root, sub), rig)
+        by_path[key] = res[key]["launches"]
+    print(f"joint BA at --devices 2: {time.perf_counter() - t0:.1f} s")
+    dry, dry_paths = run_dryruns(torch, kernels, entry)
+    res["dryrun"] = dry
+    by_path.update(dry_paths)
+    torch.cuda.empty_cache()
+    print(f"multi-device phase: {time.perf_counter() - t_all:.1f} s")
+    return res, by_path
+
+
 def check_no_jax() -> None:
     if any(m in ("jax", "dataset_pipeline_tpu") or m.startswith(("jax.", "dataset_pipeline_tpu."))
            for m in sys.modules):
@@ -2923,6 +3207,11 @@ def main(argv=None) -> int:
         slice5, slice5_launches, b3_slice5 = run_slice5(torch, kernels, synthetic, cio,
                                                         quat_to_matrix_np, tps, root)
         print(json.dumps({"slice5": slice5}, default=float))
+
+        # slice 6: the multi-device layer (reuses the DSLR cache and the small joint-BA scenes)
+        slice6, slice6_launches = run_slice6(torch, kernels, image_registrator, entry,
+                                             pack_group_data, gn, cio, root)
+        print(json.dumps({"slice6": slice6}, default=float))
     b3["dslr_inputs"] = check_b3_at_captured(torch, tps, dslr_b3, "the DSLR run's first derivs launch",
                                              flat_sampler)
     del dslr_b3
@@ -2969,7 +3258,8 @@ def main(argv=None) -> int:
     # per kernel: the launches of each main path that runs it (by counter: B1 and
     # B3 have two launch modes), and this run's numbers
     by_path = {"icp_scan_aligner": launches, "image_registrator": reg, "icp_bench": bench,
-               "gather_probe": probe_launches, **slice4_launches, "joint_ba": slice5_launches}
+               "gather_probe": probe_launches, **slice4_launches, "joint_ba": slice5_launches,
+               **slice6_launches}
     measured = {"gn_fused": b1, "moment_gram": b2,
                 "pyramid_sample": {**b3["derivs"],
                                    **{k: b3[k] for k in ("pair_build", "dslr_inputs", "flat_sampler") if k in b3},

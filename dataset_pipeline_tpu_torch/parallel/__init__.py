@@ -1,1 +1,2 @@
-"""Joint multi-scene bundle adjustment (one device; the process group comes later)."""
+"""Device meshes over torch.distributed, the sharded normal equations and the
+joint multi-scene bundle adjustment."""

@@ -8,9 +8,10 @@ and the small reduced system is solved.
 
 This module is the validation twin of the production system
 (``parallel/joint_ba.py``): rows are materialized densely on the host, one
-row per descriptor component or ICP correspondence. The JAX package reduces
-H, b over a device mesh with ``psum``; here the accumulation runs on one
-device (``make_sharded_hb`` takes a device, not a mesh).
+row per descriptor component or ICP correspondence. Each rank of a mesh
+(``parallel/mesh.py``) accumulates H, b over its shard of the rows and the
+three results are summed over the mesh (JAX: ``psum``); a bare device is a
+one-rank mesh.
 
 Every contraction runs in strict fp32: the Schur complement cancels
 catastrophically, and the package keeps TF32 off.
@@ -26,6 +27,7 @@ import torch
 from dataset_pipeline_tpu_torch.models.lie import SE3, quat_rotate
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import flatten_pyramid, pyramid_sample
 from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_COLOR_HUBER, huber_weight
+from dataset_pipeline_tpu_torch.parallel.mesh import as_mesh
 from dataset_pipeline_tpu_torch.photometric.optimizer import _forward_jacobian, _project_full
 
 
@@ -55,22 +57,24 @@ def schur_eliminate_images(H, b, n_keep: int, num_images: int, lam=0.0):
     return S, rhs, back
 
 
-def make_sharded_hb(device, row_fn: Callable, n_vars: int):
-    """H, b accumulator over residual rows on ``device``.
+def make_sharded_hb(mesh, row_fn: Callable, n_vars: int):
+    """H, b accumulator over residual rows sharded over ``mesh`` (a
+    ``Mesh``, or a device for a one-rank mesh).
 
-    ``row_fn(*inputs) -> (rows (R, n_vars), r (R,), w (R,))``; returns a
-    function of the inputs producing (H (n_vars, n_vars), b (n_vars,), cost).
-    The JAX package evaluates ``row_fn`` per device on its shard and
-    ``psum``s the three results; on one device the shard is everything."""
+    ``row_fn(*inputs) -> (rows (R, n_vars), r (R,), w (R,))`` is evaluated on
+    this rank's shard of the inputs (``mesh.shard_rows``); returns a function
+    of the shard producing the replicated (H (n_vars, n_vars), b (n_vars,),
+    cost), each summed over the mesh."""
+    mesh = as_mesh(mesh)
 
     def hb(*inputs):
-        rows, r, w = row_fn(*(x.to(device) for x in inputs))
+        rows, r, w = row_fn(*(x.to(mesh.device) for x in inputs))
         sw = torch.sqrt(w)[:, None]
         rows_w = rows * sw
         r_w = r * sw[:, 0]
         H = rows_w.T @ rows_w
         b = torch.sum(rows_w * r_w[:, None], 0)
-        return H, b, torch.sum(r_w * r_w)
+        return mesh.all_reduce(H), mesh.all_reduce(b), mesh.all_reduce(torch.sum(r_w * r_w))
 
     return hb
 
@@ -269,13 +273,15 @@ def build_joint_rows(scenes: List[JointScene], obs_scale: float = 0.0,
             n_keep, m)
 
 
-def joint_ba_step(device, row_fn: Callable, inputs: Tuple, n_keep: int, num_images: int,
+def joint_ba_step(mesh, row_fn: Callable, inputs: Tuple, n_keep: int, num_images: int,
                   lam: float = 1e-3):
-    """One damped GN step of the joint BA over dense rows.
+    """One damped GN step of the joint BA over dense rows sharded over
+    ``mesh`` (a ``Mesh``, or a device for one rank): ``inputs`` is this
+    rank's shard; every rank solves the same reduced system.
 
     Returns (delta_keep (n_keep,), delta_images (m,6), cost). Deltas follow
     the framework convention: apply as ``exp(-delta)`` / subtract."""
-    hb = make_sharded_hb(device, row_fn, n_keep + 6 * num_images)
+    hb = make_sharded_hb(mesh, row_fn, n_keep + 6 * num_images)
     H, b, cost = hb(*inputs)
     S, rhs, back = schur_eliminate_images(H, b, n_keep, num_images, lam)
     x_keep = torch.linalg.solve(S, rhs)

@@ -1,6 +1,6 @@
 """Joint multi-scene scan+image BA: rows produced on the device.
 
-Port of ``dataset_pipeline_tpu/parallel/joint_ba.py`` for one device:
+Port of ``dataset_pipeline_tpu/parallel/joint_ba.py``:
 
 - **Rows are produced per image on the device** and only the block-sparse
   normal-equation pieces are kept: ``Hkk (n_keep, n_keep)`` for the kept
@@ -16,13 +16,20 @@ Port of ``dataset_pipeline_tpu/parallel/joint_ba.py`` for one device:
 Variable layout: ``[shared intrinsics P | 6 per free scan (scene-major,
 first scan of each scene gauge-fixed) | 6 per image (eliminated)]``.
 
-The JAX package shards images and ICP rows over a device mesh and reduces
-with ``psum``; here the world size is 1, so nothing is padded (``m_pad``,
-``img_valid`` and ``icp_w0_np`` stay for the multi-device layer). Images are
-folded one at a time in order, as the JAX ``lax.scan`` does. Sampling goes
-through ``ops/pyramid_sample.py`` (B3 on the card) in both modes; each
-system builds its flat pyramid and, on the card, the row-paired copy once.
-All contractions run in strict fp32 (the package keeps TF32 off).
+Images and ICP rows are sharded over a mesh (``parallel/mesh.py``; a bare
+device is a one-rank mesh): the images are padded to ``m_pad``, a multiple
+of the mesh size (``img_valid`` False for the padding, which adds nothing),
+the ICP rows likewise with ``w = 0``. Each rank folds its contiguous share
+of the images, one at a time in order as the JAX ``lax.scan`` does, and its
+share of the ICP rows, and damps its own part of the reduced system (the
+damping is linear in the parts); S, rhs, cost and count are summed over the
+mesh (JAX: ``psum``), every rank solves the same system, and the per-image
+back-substituted steps are gathered so that every rank applies the same
+update. Visibility and the frozen-visibility cost are per rank too. Sampling
+goes through ``ops/pyramid_sample.py`` (B3 on the card) in both modes; each
+system builds the flat pyramid of its images and, on the card, the
+row-paired copy once. All contractions run in strict fp32 (the package keeps
+TF32 off).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from dataset_pipeline_tpu_torch.ops.pyramid_sample import flatten_pyramid, pair_
 from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_COLOR_HUBER, huber_rho
 from dataset_pipeline_tpu_torch.ops.splat import render_splats_depth
 from dataset_pipeline_tpu_torch.parallel.ba import _cross
+from dataset_pipeline_tpu_torch.parallel.mesh import Mesh, as_mesh, padded_rows, shard_range
 from dataset_pipeline_tpu_torch.photometric.optimizer import (
     _forward_jacobian,
     _gram,
@@ -69,10 +77,11 @@ class JointBAPack:
     scene, per-image arrays, image poses and the pooled ICP correspondences."""
 
     device: torch.device
+    mesh: Mesh
     camera: cm.Camera
     n_scenes: int
     n_images: int  # real image count (m)
-    m_pad: int  # padded to a multiple of the world size: = n_images on one device
+    m_pad: int  # padded to a multiple of the mesh size
     s_max: int  # max scans per scene
     n_int: int  # optimized intrinsics params (0 = fixed)
     n_free: int  # free scan blocks (gauge-fixed excluded)
@@ -192,9 +201,10 @@ def _free_scan_columns(scenes, s_max: int) -> np.ndarray:
     return scan_col
 
 
-def _pool_icp(scenes):
-    """The scenes' ICP correspondences pooled (numpy), padded to at least one
-    row (a zero-weight row, as JAX pads to its mesh size)."""
+def _pool_icp(scenes, n_ranks: int):
+    """The scenes' ICP correspondences pooled (numpy), padded with
+    zero-weight rows to a positive multiple of ``n_ranks``, as JAX pads to
+    its mesh size."""
     cols = {k: [] for k in "ps ns pt nt w scene src tgt".split()}
     for si, sc in enumerate(scenes):
         if sc.icp is None:
@@ -216,20 +226,36 @@ def _pool_icp(scenes):
                            np.float32 if k in ("ps", "ns", "pt", "nt", "w") else np.int64)
                for k in cols}
     M = len(cat["w"])
-    pad = 1 if M == 0 else 0
+    pad = max(-(-M // n_ranks), 1) * n_ranks - M
     return {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)]) for k, v in cat.items()}, M
 
 
-def pack_scenes(device, scenes, optimize_intrinsics: bool = True, occl_downscale: int = 2,
+def _pad_images(x: torch.Tensor, n: int, fill=0.0) -> torch.Tensor:
+    """``x`` with its leading (image) axis padded to ``n`` with ``fill``."""
+    pad = n - x.shape[0]
+    return x if pad == 0 else torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)])
+
+
+def _identity_poses(poses_q, poses_t, n: int):
+    """Pose arrays padded to ``n`` with identity poses."""
+    q = _pad_images(poses_q, n)
+    q[poses_q.shape[0]:, 0] = 1.0
+    return q, _pad_images(poses_t, n)
+
+
+def pack_scenes(mesh, scenes, optimize_intrinsics: bool = True, occl_downscale: int = 2,
                 occlusion_radius: float = 0.03, occlusion_depth_threshold: float = 0.01,
                 all_levels: bool = True) -> JointBAPack:
-    """Pack a list of ``JointScene`` (``parallel.ba``) on ``device`` (the card
-    unless named). All scenes share one camera.
+    """Pack a list of ``JointScene`` (``parallel.ba``) for ``mesh`` (a
+    ``Mesh``, or a device, the card unless named, for one rank): every rank
+    holds the whole pack on its device, the images and ICP rows padded to a
+    multiple of the mesh size. All scenes share one camera.
 
     ``all_levels`` (default): every multi-resolution point level of each
     scene's problem is concatenated (per-point footprint radii, neighbor
     indices offset per level); ``False`` keeps each scene's ``level_idx``."""
-    device = default_device(device)
+    mesh = as_mesh(mesh)
+    device = mesh.device
     cam = scenes[0].problem.groups[0].camera
     n_int = int(cam.params.shape[0]) if optimize_intrinsics else 0
     n_scenes = len(scenes)
@@ -259,23 +285,25 @@ def pack_scenes(device, scenes, optimize_intrinsics: bool = True, occl_downscale
         img_scene += [si] * g.num_images
         pose_q.append(g.poses.q.to(device, torch.float32))
         pose_t.append(g.poses.t.to(device, torch.float32))
-    m = len(img_scene)  # one device: no padding images (m_pad = m, every image valid)
-    img_scene_np = np.asarray(img_scene, np.int64)
-    icp, M = _pool_icp(scenes)
+    m = len(img_scene)
+    m_pad = padded_rows(m, mesh)
+    img_scene_np = np.asarray(img_scene + [0] * (m_pad - m), np.int64)
+    icp, M = _pool_icp(scenes, mesh.size)
+    pose_q0, pose_t0 = _identity_poses(torch.cat(pose_q), torch.cat(pose_t), m_pad)
 
     def dev(a):
         return torch.as_tensor(a, device=device)
 
     return JointBAPack(
-        device=device, camera=cam.to(device), n_scenes=n_scenes, n_images=m, m_pad=m,
-        s_max=s_max, n_int=n_int, n_free=n_free, scale_count=len(pyr_levels),
+        device=device, mesh=mesh, camera=cam.to(device), n_scenes=n_scenes, n_images=m,
+        m_pad=m_pad, s_max=s_max, n_int=n_int, n_free=n_free, scale_count=len(pyr_levels),
         occl_downscale=occl_downscale,
         scene_points=dev(sp), scene_scan_idx=dev(ss), scene_neighbors=dev(sn),
         scene_desc=dev(sd), scene_valid=dev(sv), scene_radius=dev(sr),
         scan_col=dev(scan_col.astype(np.int64)), expand=dev(expand),
-        img_scene=dev(img_scene_np), img_valid=torch.ones(m, dtype=torch.bool, device=device),
-        pose_q0=torch.cat(pose_q), pose_t0=torch.cat(pose_t),
-        pyramids=[torch.cat(lvls) for lvls in pyr_levels],
+        img_scene=dev(img_scene_np), img_valid=torch.arange(m_pad, device=device) < m,
+        pose_q0=pose_q0, pose_t0=pose_t0,
+        pyramids=[_pad_images(torch.cat(lvls), m_pad) for lvls in pyr_levels],
         icp_ps=dev(icp["ps"]), icp_ns=dev(icp["ns"]), icp_pt=dev(icp["pt"]),
         icp_nt=dev(icp["nt"]), icp_w=dev(icp["w"]), icp_scene=dev(icp["scene"]),
         icp_src_s=dev(icp["src"]), icp_tgt_s=dev(icp["tgt"]),
@@ -443,39 +471,41 @@ def _cost_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, flat,
     return torch.sum(torch.where(all_ok, rho, torch.zeros_like(rho))), torch.sum(all_ok)
 
 
-def _icp_local(pack, corr_q, corr_t):
-    """The ICP rows -> (Hs (6F, 6F), bs (6F,), cost) over the free-scan
-    section of the kept block. Correspondence endpoints move with their
-    scans' corrections; +target/-source for the source-normal row, the roles
-    swapped for the target-normal twin."""
+def _icp_local(pack, corr_q, corr_t, rows: slice = slice(None)):
+    """The ICP rows (``rows`` of them: a rank's share) -> (Hs (6F, 6F),
+    bs (6F,), cost) over the free-scan section of the kept block.
+    Correspondence endpoints move with their scans' corrections;
+    +target/-source for the source-normal row, the roles swapped for the
+    target-normal twin."""
     F = pack.n_free
-    dev = pack.icp_w.device
-    if F == 0 or pack.icp_w.shape[0] == 0:
+    w = pack.icp_w[rows]
+    dev = w.device
+    if F == 0 or w.shape[0] == 0:
         return (torch.zeros((6 * F, 6 * F), device=dev), torch.zeros((6 * F,), device=dev),
                 torch.zeros((), device=dev))
-    sc = pack.icp_scene
-    qs, ts = corr_q[sc, pack.icp_src_s], corr_t[sc, pack.icp_src_s]
-    qt, tt = corr_q[sc, pack.icp_tgt_s], corr_t[sc, pack.icp_tgt_s]
-    ps = quat_rotate(qs, pack.icp_ps) + ts
-    pt = quat_rotate(qt, pack.icp_pt) + tt
-    ns = quat_rotate(qs, pack.icp_ns)
-    nt = quat_rotate(qt, pack.icp_nt)
+    sc, src_s, tgt_s = pack.icp_scene[rows], pack.icp_src_s[rows], pack.icp_tgt_s[rows]
+    qs, ts = corr_q[sc, src_s], corr_t[sc, src_s]
+    qt, tt = corr_q[sc, tgt_s], corr_t[sc, tgt_s]
+    ps = quat_rotate(qs, pack.icp_ps[rows]) + ts
+    pt = quat_rotate(qt, pack.icp_pt[rows]) + tt
+    ns = quat_rotate(qs, pack.icp_ns[rows])
+    nt = quat_rotate(qt, pack.icp_nt[rows])
     diff = pt - ps
     r1 = torch.sum(ns * diff, -1)
     r2 = -torch.sum(nt * diff, -1)
     j1 = torch.cat([ns, _cross(pt, ns)], -1)
     j2 = torch.cat([nt, _cross(ps, nt)], -1)
-    src_col = pack.scan_col[sc, pack.icp_src_s]  # (M,), -1 = gauge-fixed
-    tgt_col = pack.scan_col[sc, pack.icp_tgt_s]
+    src_col = pack.scan_col[sc, src_s]  # (M,), -1 = gauge-fixed
+    tgt_col = pack.scan_col[sc, tgt_s]
     blocks = torch.arange(F, device=dev)[None, :]
     sgn = ((tgt_col[:, None] == blocks).to(torch.float32)
            - (src_col[:, None] == blocks).to(torch.float32))  # (M, F)
-    sw = torch.sqrt(pack.icp_w)[:, None]
+    sw = torch.sqrt(w)[:, None]
 
     def gram_of(j, r):
         rows = (j[:, None, :] * sgn[:, :, None]).reshape(-1, 6 * F)
         rows_w = rows * sw
-        rw = pack.icp_w * r
+        rw = w * r
         # one (6F x M)(M x 6F) product leaves cuBLAS a few tiles: _gram slices the rows
         return _gram(rows_w[None], rows_w[None])[0], torch.sum(rows * rw[:, None], 0), torch.sum(rw * r)
 
@@ -486,15 +516,18 @@ def _icp_local(pack, corr_q, corr_t):
     return H1 + H2, b1 + b2, c1 + c2
 
 
-def _damped_schur(Hkk, bk, Hki, Hii, bi, img_valid, lam: float):
+def _damped_schur(Hkk, bk, Hki, Hii, bi, img_valid, lam: float, mesh: Mesh):
     """The damped reduced system and its solution: (x_keep, x_img) float32.
-    diag*(1+lam) damping; images with no observations (or padding) are
-    decoupled by an identity block whose inverse is then zeroed. The
-    elimination and the solve run in float64 (the JAX package's run in
-    float32; the registrator's port solves in float64 too): the reduced
-    system's condition number (~1e5 with free intrinsics) would otherwise
-    turn float32 rounding into percent-level differences of the step
-    between the card and the CPU."""
+    The pieces are this rank's (its images, and its ICP rows folded into
+    Hkk, bk); each rank damps and reduces its own part, S and rhs are summed
+    over ``mesh``, every rank solves, and the images' steps are gathered in
+    image order. diag*(1+lam) damping; images with no observations (or
+    padding) are decoupled by an identity block whose inverse is then
+    zeroed. The elimination and the solve run in float64 (the JAX package's
+    run in float32; the registrator's port solves in float64 too): the
+    reduced system's condition number (~1e5 with free intrinsics) would
+    otherwise turn float32 rounding into percent-level differences of the
+    step between the card and the CPU."""
     Hkk, bk, Hki, Hii, bi = (x.double() for x in (Hkk, bk, Hki, Hii, bi))
     n_keep = Hkk.shape[0]
     eye6 = torch.eye(6, dtype=Hii.dtype, device=Hii.device)
@@ -509,9 +542,10 @@ def _damped_schur(Hkk, bk, Hki, Hii, bi, img_valid, lam: float):
     W = torch.einsum("mki,mij->mkj", Hki, inv_Hii)
     S = Hkk * (1.0 + lam * eye_k) - torch.einsum("mki,mni->kn", W, Hki)
     rhs = bk - torch.einsum("mki,mi->k", W, bi)
+    S, rhs = mesh.all_reduce(S), mesh.all_reduce(rhs)
     x_keep = torch.linalg.solve_ex(S + 1e-10 * eye_k, rhs)[0]
     r_i = bi - torch.einsum("mki,k->mi", Hki, x_keep)
-    return x_keep.float(), torch.einsum("mij,mj->mi", inv_Hii, r_i).float()
+    return x_keep.float(), mesh.all_gather(torch.einsum("mij,mj->mi", inv_Hii, r_i).float())
 
 
 # ---------------------------------------------------------------------------
@@ -520,33 +554,42 @@ def _damped_schur(Hkk, bk, Hki, Hii, bi, img_valid, lam: float):
 
 
 class JointBASystem:
-    """The joint-BA passes over a fixed pack:
+    """The joint-BA passes over a fixed pack, each rank on its images and
+    ICP rows (all of them on one rank):
 
-    - ``visibility(state) -> (vis, obs_scale)``, (m_pad, N_max) each;
-    - ``step(state, vis, obs_scale, lam) -> (x_keep, x_img, cost, count)``;
-    - ``cost(state, vis, obs_scale) -> (cost, count)``.
+    - ``visibility(state) -> (vis, obs_scale)``, (m_local, N_max) each, for
+      this rank's images;
+    - ``step(state, vis, obs_scale, lam) -> (x_keep, x_img (m_pad, 6), cost,
+      count)``, replicated on every rank;
+    - ``cost(state, vis, obs_scale) -> (cost, count)``, summed over the mesh.
 
-    The pyramids' flat copy (and on the card its row-paired copy, which B3
-    reads) is built once here. ``timer``, if given, times each pass as the
-    stage ``joint_ba.<pass>`` (the card synchronized around it)."""
+    The flat copy of this rank's pyramids (and on the card its row-paired
+    copy, which B3 reads) is built once here. ``timer``, if given, times
+    each pass as the stage ``joint_ba.<pass>`` (the card synchronized around
+    it)."""
 
     def __init__(self, pack: JointBAPack, current_scale: float = 0.0,
                  timer: Optional[StageTimer] = None):
         self.pack = pack
+        self.mesh = pack.mesh
         self.current_scale = float(current_scale)
         self.timer = timer
-        self.flat, self.layout = flatten_pyramid(pack.pyramids)
+        self.images = range(pack.m_pad)[shard_range(pack.mesh, pack.m_pad)]
+        self.icp_rows = shard_range(pack.mesh, pack.icp_w.shape[0])
+        self.flat, self.layout = flatten_pyramid(
+            [p[self.images.start:self.images.stop] for p in pack.pyramids])
         self.pairs = pair_rows(self.flat, self.layout) if self.flat.is_cuda else None
 
-    def _image(self, i: int):
-        return (self.flat[i:i + 1], self.layout,
-                None if self.pairs is None else self.pairs[i:i + 1])
+    def _image(self, j: int):
+        """The flat pyramid of this rank's ``j``-th image."""
+        return (self.flat[j:j + 1], self.layout,
+                None if self.pairs is None else self.pairs[j:j + 1])
 
     def visibility(self, state):
         p = self.pack
         with _stage(self.timer, "joint_ba.visibility"):
             vs, ss = [], []
-            for i in range(p.m_pad):
+            for i in self.images:
                 v, s = _vis_one_image(p, state["params"], state["corr_q"], state["corr_t"],
                                       state["pose_q"][i], state["pose_t"][i],
                                       int(p.img_scene_np[i]), self.current_scale)
@@ -555,8 +598,9 @@ class JointBASystem:
             return torch.stack(vs), torch.stack(ss)
 
     def normal_equations(self, state, vis, obs_scale):
-        """The block-sparse pieces of H, b: (Hkk, bk, Hki (m,k,6), Hii (m,6,6),
-        bi (m,6), cost, count), the ICP rows folded into Hkk / bk."""
+        """This rank's block-sparse pieces of H, b: (Hkk, bk, Hki (m_local,k,6),
+        Hii (m_local,6,6), bi (m_local,6), cost, count) of its images, its ICP
+        rows folded into Hkk / bk; not summed over the mesh."""
         p = self.pack
         n_keep, dk, n_int, dev = p.n_keep, p.dk, p.n_int, p.device
         Hkk = torch.zeros((n_keep, n_keep), device=dev)
@@ -564,11 +608,11 @@ class JointBASystem:
         cost = torch.zeros((), device=dev)
         count = torch.zeros((), dtype=torch.int64, device=dev)
         Hki, Hii, bi = [], [], []
-        for i in range(p.m_pad):
+        for j, i in enumerate(self.images):
             si = int(p.img_scene_np[i])
             G, g, c_i, n_i = _rows_one_image(p, state["params"], state["corr_q"], state["corr_t"],
                                              state["pose_q"][i], state["pose_t"][i], si,
-                                             *self._image(i), vis[i], obs_scale[i])
+                                             *self._image(j), vis[j], obs_scale[j])
             E = p.expand[si]  # (dk, n_keep)
             Hkk = Hkk + E.T @ (G[:dk, :dk] @ E)
             bk = bk + E.T @ g[:dk]
@@ -577,7 +621,7 @@ class JointBASystem:
             Hki.append(E.T @ G[:dk, dk:])
             Hii.append(G[dk:, dk:])
             bi.append(g[dk:])
-        Hs, bs, c_icp = _icp_local(p, state["corr_q"], state["corr_t"])
+        Hs, bs, c_icp = _icp_local(p, state["corr_q"], state["corr_t"], self.icp_rows)
         if p.n_free > 0:
             Hkk = Hkk.clone()
             Hkk[n_int:, n_int:] += Hs
@@ -589,22 +633,25 @@ class JointBASystem:
         p = self.pack
         with _stage(self.timer, "joint_ba.step"):
             Hkk, bk, Hki, Hii, bi, cost, count = self.normal_equations(state, vis, obs_scale)
-            x_keep, x_img = _damped_schur(Hkk, bk, Hki, Hii, bi, p.img_valid, lam)
-            return x_keep, x_img, cost, count
+            x_keep, x_img = _damped_schur(Hkk, bk, Hki, Hii, bi,
+                                          p.img_valid[self.images.start:self.images.stop], lam,
+                                          self.mesh)
+            return x_keep, x_img, self.mesh.all_reduce(cost), self.mesh.all_reduce(count)
 
     def cost(self, state, vis, obs_scale):
         p = self.pack
         with _stage(self.timer, "joint_ba.cost"):
             costs, counts = [], []
-            for i in range(p.m_pad):
+            for j, i in enumerate(self.images):
                 c, n = _cost_one_image(p, state["params"], state["corr_q"], state["corr_t"],
                                        state["pose_q"][i], state["pose_t"][i],
-                                       int(p.img_scene_np[i]), *self._image(i), vis[i],
-                                       obs_scale[i])
+                                       int(p.img_scene_np[i]), *self._image(j), vis[j],
+                                       obs_scale[j])
                 costs.append(c)
                 counts.append(n)
-            _, _, c_icp = _icp_local(p, state["corr_q"], state["corr_t"])
-            return torch.sum(torch.stack(costs)) + c_icp, torch.sum(torch.stack(counts))
+            _, _, c_icp = _icp_local(p, state["corr_q"], state["corr_t"], self.icp_rows)
+            return (self.mesh.all_reduce(torch.sum(torch.stack(costs)) + c_icp),
+                    self.mesh.all_reduce(torch.sum(torch.stack(counts))))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """Rig-capable joint multi-scene BA: frames as the Schur-eliminated unit.
 
-Port of ``dataset_pipeline_tpu/parallel/joint_ba_rig.py`` for one device.
-It generalizes ``parallel/joint_ba.py`` to the full variable set:
+Port of ``dataset_pipeline_tpu/parallel/joint_ba_rig.py``. It generalizes
+``parallel/joint_ba.py`` to the full variable set:
 
 - **several camera groups**: one intrinsics block per rig slot;
 - **rig extrinsics**: 6-dof kept blocks per non-reference rig camera, the
@@ -9,10 +9,12 @@ It generalizes ``parallel/joint_ba.py`` to the full variable set:
 - **inverse-depth residuals** for reference-slot images.
 
 The unit of elimination is the frame: every rig image of a frame shares the
-frame's 6-dof reference pose. Everything else (block-sparse Hkk / Hki / Hii,
-the damped reduced system, back-substitution) is ``joint_ba.py``'s. A slot
-absent from a frame is skipped (the JAX package evaluates it on zero images
-and multiplies the result by 0).
+frame's 6-dof reference pose, and frames are what a mesh shards (padding
+frames have no slot present). Everything else (block-sparse Hkk / Hki /
+Hii, the damped reduced system summed over the mesh, back-substitution and
+the gathered steps) is ``joint_ba.py``'s. A slot absent from a frame is
+skipped (the JAX package evaluates it on zero images and multiplies the
+result by 0).
 """
 
 from __future__ import annotations
@@ -23,7 +25,6 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from dataset_pipeline_tpu_torch import default_device
 from dataset_pipeline_tpu_torch.icp.moments import quat_mul_np, se3_exp_np
 from dataset_pipeline_tpu_torch.models import cameras as cm
 from dataset_pipeline_tpu_torch.models.lie import (
@@ -44,8 +45,10 @@ from dataset_pipeline_tpu_torch.parallel.joint_ba import (
     _free_scan_columns,
     _identity_corrections,
     _icp_local,
+    _identity_poses,
     _image_gram,
     _intensity_derivs,
+    _pad_images,
     _pool_icp,
     _scan_rows,
     _scene_geometry,
@@ -53,6 +56,7 @@ from dataset_pipeline_tpu_torch.parallel.joint_ba import (
     _vis_one_image,
     run_joint_ba,
 )
+from dataset_pipeline_tpu_torch.parallel.mesh import Mesh, as_mesh, padded_rows, shard_range
 from dataset_pipeline_tpu_torch.photometric.optimizer import (
     _forward_jacobian,
     _gram,
@@ -68,11 +72,12 @@ class RigJointPack:
     ``JointBAPack``, and per frame the per-slot pyramids."""
 
     device: torch.device
+    mesh: Mesh
     cameras: List[cm.Camera]  # per rig slot, slot 0 = reference
     n_cams: int
     n_scenes: int
     n_frames: int  # real frame count
-    f_pad: int
+    f_pad: int  # padded to a multiple of the mesh size
     s_max: int
     n_int: int  # total optimized intrinsics params
     p_off: List[int]  # kept offset of slot c's params
@@ -146,14 +151,17 @@ def make_rig_state(pack: RigJointPack) -> dict:
             "pose_q": pack.ref_q0, "pose_t": pack.ref_t0}
 
 
-def pack_rig_scenes(device, scenes, optimize_intrinsics: bool = True, occl_downscale: int = 2,
+def pack_rig_scenes(mesh, scenes, optimize_intrinsics: bool = True, occl_downscale: int = 2,
                     occlusion_radius: float = 0.03, occlusion_depth_threshold: float = 0.01,
                     depth_weight: float = 0.0, all_levels: bool = True) -> RigJointPack:
-    """Pack ``JointScene``s whose problems carry a rig on ``device`` (the card
-    unless named): each problem's groups are the rig slots (ordered by
-    ``rig_cam_index``; group 0's images define the frames). All scenes share
-    the rig (per-slot cameras and extrinsics)."""
-    device = default_device(device)
+    """Pack ``JointScene``s whose problems carry a rig for ``mesh`` (a
+    ``Mesh``, or a device, the card unless named, for one rank), the frames
+    and ICP rows padded to a multiple of the mesh size: each problem's
+    groups are the rig slots (ordered by ``rig_cam_index``; group 0's images
+    define the frames). All scenes share the rig (per-slot cameras and
+    extrinsics)."""
+    mesh = as_mesh(mesh)
+    device = mesh.device
     probs = [sc.problem for sc in scenes]
     groups0 = sorted(probs[0].groups, key=lambda g: g.rig_cam_index)
     n_cams = len(groups0)
@@ -223,25 +231,29 @@ def pack_rig_scenes(device, scenes, optimize_intrinsics: bool = True, occl_downs
         frame_scene += [si] * nf
         ref_q.append(g0.poses.q.to(device, torch.float32))
         ref_t.append(g0.poses.t.to(device, torch.float32))
-    f = len(frame_scene)  # one device: no padding frames (f_pad = f, every frame valid)
-    frame_scene_np = np.asarray(frame_scene, np.int64)
-    present = np.concatenate(present_rows, 0)
-    icp, M = _pool_icp(scenes)
+    f = len(frame_scene)
+    f_pad = padded_rows(f, mesh)
+    frame_scene_np = np.asarray(frame_scene + [0] * (f_pad - f), np.int64)
+    present = np.concatenate(present_rows + [np.zeros((f_pad - f, n_cams), bool)], 0)
+    icp, M = _pool_icp(scenes, mesh.size)
+    ref_q0, ref_t0 = _identity_poses(torch.cat(ref_q), torch.cat(ref_t), f_pad)
 
     def dev(a):
         return torch.as_tensor(a, device=device)
 
     return RigJointPack(
-        device=device, cameras=cams, n_cams=n_cams, n_scenes=n_scenes, n_frames=f, f_pad=f,
+        device=device, mesh=mesh, cameras=cams, n_cams=n_cams, n_scenes=n_scenes, n_frames=f,
+        f_pad=f_pad,
         s_max=s_max, n_int=n_int, p_off=p_off, p_len=p_len, n_free=n_free,
         scale_count=len(pyr_levels), occl_downscale=occl_downscale, depth_weight=depth_weight,
         scene_points=dev(sp), scene_scan_idx=dev(ss), scene_neighbors=dev(sn),
         scene_desc=dev(sd), scene_valid=dev(sv), scene_radius=dev(sr),
         scan_col=dev(scan_col.astype(np.int64)), expand_c=expand_c,
-        frame_scene=dev(frame_scene_np), frame_valid=torch.ones(f, dtype=torch.bool, device=device),
-        present=dev(present), ref_q0=torch.cat(ref_q), ref_t0=torch.cat(ref_t),
-        pyramids=[torch.cat(lvls) for lvls in pyr_levels],
-        depth_pyramids=None if depth_levels is None else [torch.cat(l) for l in depth_levels],
+        frame_scene=dev(frame_scene_np), frame_valid=torch.arange(f_pad, device=device) < f,
+        present=dev(present), ref_q0=ref_q0, ref_t0=ref_t0,
+        pyramids=[_pad_images(torch.cat(lvls), f_pad) for lvls in pyr_levels],
+        depth_pyramids=None if depth_levels is None else [_pad_images(torch.cat(l), f_pad)
+                                                          for l in depth_levels],
         extr_q0=extr_q0, extr_t0=extr_t0,
         icp_ps=dev(icp["ps"]), icp_ns=dev(icp["ns"]), icp_pt=dev(icp["pt"]),
         icp_nt=dev(icp["nt"]), icp_w=dev(icp["w"]), icp_scene=dev(icp["scene"]),
@@ -409,38 +421,47 @@ def _flat_and_pairs(levels):
 
 
 class RigJointBASystem:
-    """The rig passes over a fixed pack; the interface of ``JointBASystem``
-    (visibility / step / cost), so ``run_joint_ba`` drives it unchanged."""
+    """The rig passes over a fixed pack, each rank on its frames and ICP
+    rows; the interface of ``JointBASystem`` (visibility / step / cost), so
+    ``run_joint_ba`` drives it unchanged."""
 
     def __init__(self, pack: RigJointPack, current_scale: float = 0.0,
                  timer: Optional[StageTimer] = None):
         self.pack = pack
+        self.mesh = pack.mesh
         self.current_scale = float(current_scale)
         self.timer = timer
-        n = pack.f_pad * pack.n_cams
+        self.frames = range(pack.f_pad)[shard_range(pack.mesh, pack.f_pad)]
+        self.icp_rows = shard_range(pack.mesh, pack.icp_w.shape[0])
+        own = slice(self.frames.start, self.frames.stop)
+        n = len(self.frames) * pack.n_cams
         self.flat, self.layout, self.pairs = _flat_and_pairs(
-            [p.reshape((n,) + tuple(p.shape[2:])) for p in pack.pyramids])
+            [p[own].reshape((n,) + tuple(p.shape[2:])) for p in pack.pyramids])
         self.has_depth = pack.depth_pyramids is not None and pack.depth_weight > 0
         if self.has_depth:
-            self.dflat, self.dlayout, self.dpairs = _flat_and_pairs(pack.depth_pyramids)
+            self.dflat, self.dlayout, self.dpairs = _flat_and_pairs(
+                [p[own] for p in pack.depth_pyramids])
 
-    def _image(self, i: int, c: int):
-        j = i * self.pack.n_cams + c
-        return (self.flat[j:j + 1], self.layout,
-                None if self.pairs is None else self.pairs[j:j + 1])
+    def _image(self, j: int, c: int):
+        """The flat pyramid of slot ``c`` of this rank's ``j``-th frame."""
+        k = j * self.pack.n_cams + c
+        return (self.flat[k:k + 1], self.layout,
+                None if self.pairs is None else self.pairs[k:k + 1])
 
-    def _depth(self, i: int):
-        return (self.dflat[i:i + 1], self.dlayout,
-                None if self.dpairs is None else self.dpairs[i:i + 1])
+    def _depth(self, j: int):
+        return (self.dflat[j:j + 1], self.dlayout,
+                None if self.dpairs is None else self.dpairs[j:j + 1])
 
     def _slots(self, i: int):
         return [c for c in range(self.pack.n_cams) if self.pack.present_np[i, c]]
 
     def visibility(self, state):
+        """(vis, obs_scale), (f_local, n_cams, N_max) each, for this rank's
+        frames."""
         p = self.pack
         with _stage(self.timer, "joint_ba.visibility"):
             vis, scales = [], []
-            for i in range(p.f_pad):
+            for i in self.frames:
                 vs, ss = [], []
                 for c in range(p.n_cams):
                     v, s = _vis_one(p, c, state["params"][c], state["corr_q"], state["corr_t"],
@@ -454,8 +475,9 @@ class RigJointBASystem:
             return torch.stack(vis), torch.stack(scales)
 
     def normal_equations(self, state, vis, obs_scale):
-        """The block-sparse pieces of H, b per frame: (Hkk, bk, Hki (f,k,6),
-        Hii (f,6,6), bi (f,6), cost, count), the ICP rows folded into Hkk / bk."""
+        """This rank's block-sparse pieces of H, b per frame: (Hkk, bk, Hki
+        (f_local,k,6), Hii (f_local,6,6), bi (f_local,6), cost, count), its ICP
+        rows folded into Hkk / bk; not summed over the mesh."""
         p = self.pack
         n_keep, dev = p.n_keep, p.device
         Hkk = torch.zeros((n_keep, n_keep), device=dev)
@@ -463,7 +485,7 @@ class RigJointBASystem:
         cost = torch.zeros((), device=dev)
         count = torch.zeros((), dtype=torch.int64, device=dev)
         Hki, Hii, bi = [], [], []
-        for i in range(p.f_pad):
+        for j, i in enumerate(self.frames):
             si = int(p.frame_scene_np[i])
             kk = torch.zeros((n_keep, n_keep), device=dev)
             ki = torch.zeros((n_keep, 6), device=dev)
@@ -475,7 +497,7 @@ class RigJointBASystem:
                 G, g, c_i, n_i = _rows_one(p, c, state["params"][c], state["corr_q"],
                                            state["corr_t"], state["extr_q"], state["extr_t"],
                                            state["pose_q"][i], state["pose_t"][i], si,
-                                           *self._image(i, c), vis[i, c], obs_scale[i, c])
+                                           *self._image(j, c), vis[j, c], obs_scale[j, c])
                 dk = p.dk(c)
                 E = p.expand_c[c][si]
                 kk = kk + E.T @ (G[:dk, :dk] @ E)
@@ -485,11 +507,11 @@ class RigJointBASystem:
                 bii = bii + g[dk:]
                 c_f = c_f + c_i
                 count = count + n_i
-            if self.has_depth:
+            if self.has_depth and p.present_np[i, 0]:
                 Gd, gd, cd, _ = _depth_rows_one(p, state["params"][0], state["corr_q"],
                                                 state["corr_t"], state["pose_q"][i],
-                                                state["pose_t"][i], si, *self._depth(i),
-                                                vis[i, 0], obs_scale[i, 0])
+                                                state["pose_t"][i], si, *self._depth(j),
+                                                vis[j, 0], obs_scale[j, 0])
                 w = p.depth_weight
                 dk0 = p.p_len[0] + 6 * p.s_max
                 E0 = p.expand_c[0][si]  # slot 0 has no extrinsics columns
@@ -505,7 +527,7 @@ class RigJointBASystem:
             Hki.append(ki)
             Hii.append(ii)
             bi.append(bii)
-        Hs, bs, c_icp = _icp_local(p, state["corr_q"], state["corr_t"])
+        Hs, bs, c_icp = _icp_local(p, state["corr_q"], state["corr_t"], self.icp_rows)
         so = p.scan_off
         if p.n_free > 0:
             Hkk = Hkk.clone()
@@ -518,34 +540,37 @@ class RigJointBASystem:
         p = self.pack
         with _stage(self.timer, "joint_ba.step"):
             Hkk, bk, Hki, Hii, bi, cost, count = self.normal_equations(state, vis, obs_scale)
-            x_keep, x_img = _damped_schur(Hkk, bk, Hki, Hii, bi, p.frame_valid, lam)
-            return x_keep, x_img, cost, count
+            x_keep, x_img = _damped_schur(Hkk, bk, Hki, Hii, bi,
+                                          p.frame_valid[self.frames.start:self.frames.stop], lam,
+                                          self.mesh)
+            return x_keep, x_img, self.mesh.all_reduce(cost), self.mesh.all_reduce(count)
 
     def cost(self, state, vis, obs_scale):
         p = self.pack
         with _stage(self.timer, "joint_ba.cost"):
             costs, counts = [], []
-            for i in range(p.f_pad):
+            for j, i in enumerate(self.frames):
                 si = int(p.frame_scene_np[i])
                 c_f = torch.zeros((), device=p.device)
                 n_f = torch.zeros((), dtype=torch.int64, device=p.device)
                 for c in self._slots(i):
                     cc, nn = _cost_one(p, c, state["params"][c], state["corr_q"], state["corr_t"],
                                        state["extr_q"], state["extr_t"], state["pose_q"][i],
-                                       state["pose_t"][i], si, *self._image(i, c), vis[i, c],
-                                       obs_scale[i, c])
+                                       state["pose_t"][i], si, *self._image(j, c), vis[j, c],
+                                       obs_scale[j, c])
                     c_f = c_f + cc
                     n_f = n_f + nn
-                if self.has_depth:
+                if self.has_depth and p.present_np[i, 0]:
                     cd, _ = _depth_cost_one(p, state["params"][0], state["corr_q"],
                                             state["corr_t"], state["pose_q"][i],
-                                            state["pose_t"][i], si, *self._depth(i), vis[i, 0],
-                                            obs_scale[i, 0])
+                                            state["pose_t"][i], si, *self._depth(j), vis[j, 0],
+                                            obs_scale[j, 0])
                     c_f = c_f + p.depth_weight * cd
                 costs.append(c_f)
                 counts.append(n_f)
-            _, _, c_icp = _icp_local(p, state["corr_q"], state["corr_t"])
-            return torch.sum(torch.stack(costs)) + c_icp, torch.sum(torch.stack(counts))
+            _, _, c_icp = _icp_local(p, state["corr_q"], state["corr_t"], self.icp_rows)
+            return (self.mesh.all_reduce(torch.sum(torch.stack(costs)) + c_icp),
+                    self.mesh.all_reduce(torch.sum(torch.stack(counts))))
 
 
 def apply_rig_delta(pack: RigJointPack, state, x_keep, x_img):

@@ -627,14 +627,16 @@ class PhotometricOptimizer:
     rig camera other than each rig's reference, then 6 pose dofs per image
     of the groups that are not rig-dependent, ordered by group then image.
     ``timings``, if given, collects per-stage seconds (the card is
-    synchronized around each stage).
+    synchronized around each stage). ``mesh`` (``parallel/mesh.py``) shards
+    each chunk's H,b accumulation over its ranks; without one, a one-rank
+    mesh on the problem's device takes every chunk whole.
     """
 
     def __init__(self, problem: PhotoProblem, optimize_intrinsics: bool = True,
                  max_radius_px: int = 3, fixed_weight: float = 1.0,
                  variable_weight: float = 0.0, depth_weight: float = 0.0,
                  image_chunk: int = 8, scale_jacobian: bool = True,
-                 timings: Optional[dict] = None):
+                 timings: Optional[dict] = None, mesh=None):
         self.p = problem
         self.optimize_intrinsics = optimize_intrinsics
         self.max_radius_px = max_radius_px
@@ -642,9 +644,20 @@ class PhotometricOptimizer:
         self.variable_weight = variable_weight
         self.depth_weight = depth_weight
         self.scale_jacobian = scale_jacobian
-        self.image_chunk = image_chunk
         self.timings = timings
         self.device = problem.occlusion_points.device
+        # each chunk's H,b accumulation is sharded over its image axis
+        # (parallel/photometric.py; without a mesh, a one-rank mesh on the
+        # problem's device), so the chunk is rounded up to a multiple of the
+        # mesh size; visibility, costs and the solve stay replicated, and
+        # rank 0 alone writes files
+        from dataset_pipeline_tpu_torch.parallel.mesh import as_mesh
+        from dataset_pipeline_tpu_torch.parallel.photometric import ShardedPhotometricKernels
+
+        self._kernels = ShardedPhotometricKernels(as_mesh(self.device if mesh is None else mesh))
+        nd = self._kernels.mesh.size
+        self.image_chunk = max(nd, -(-image_chunk // nd) * nd)
+        self._writes = self._kernels.mesh.rank == 0
         self.current_scale = problem.scale_count - 1
         self.lam = 64.0
         self._var_desc = None
@@ -741,7 +754,7 @@ class PhotometricOptimizer:
         self.obs_cache = cache
         self._frozen_vis = None
         self._attach_views()
-        if save_path is not None:
+        if save_path is not None and self._writes:
             cache.save(save_path, self.p.levels)
         return cache
 
@@ -1025,6 +1038,7 @@ class PhotometricOptimizer:
             dependent = g.rig_cam_index > 0
             for bi, b in enumerate(self._batches[gi]):
                 q, t = g.poses.q[b.idx_dev], g.poses.t[b.idx_dev]
+                batched = b.views is not None  # the geometry is stacked per image
                 if dependent:
                     ref_g = self.p.groups[g.ref_group]
                     extr = self.p.rig_extrinsics[g.rig_id]
@@ -1036,25 +1050,25 @@ class PhotometricOptimizer:
                     for ti, (desc, extra, w_t) in enumerate(self._residual_sets(l, b)):
                         m = mask if extra is None else (mask & extra)
                         if dependent:
-                            out = _hb_rig_batch(
+                            out = self._kernels.hb_rig_batch(
                                 g.camera, g.camera.params, extr.q[g.rig_cam_index],
                                 extr.t[g.rig_cam_index], ref_g.poses.q[slots_dev],
                                 ref_g.poses.t[slots_dev], points, neighbors, desc, b.flat,
                                 b.layout, sc, m, level.radius, self.optimize_intrinsics,
-                                self.scale_jacobian, b.pairs)
+                                self.scale_jacobian, b.pairs, geom_batched=batched)
                             meta = dict(kind="rig", slots=slots)
                         else:
-                            out = _hb_batch(g.camera, g.camera.params, q, t, points, neighbors,
-                                            desc, b.flat, b.layout, sc, m, level.radius,
-                                            self.optimize_intrinsics, self.scale_jacobian,
-                                            b.pairs)
+                            out = self._kernels.hb_batch(
+                                g.camera, g.camera.params, q, t, points, neighbors, desc, b.flat,
+                                b.layout, sc, m, level.radius, self.optimize_intrinsics,
+                                self.scale_jacobian, b.pairs, geom_batched=batched)
                             meta = dict(kind="plain")
                         meta.update(gi=gi, ti=ti, w=w_t, batch=b, nint=nint, P=P)
                         pend.append((meta, out))
                     if self._depth_active(g):
-                        out = _hb_depth_batch(g.camera, g.camera.params, q, t, points,
-                                              b.depth_flat, b.layout, sc, mask,
-                                              self.optimize_intrinsics, b.depth_pairs)
+                        out = self._kernels.hb_depth_batch(
+                            g.camera, g.camera.params, q, t, points, b.depth_flat, b.layout, sc,
+                            mask, self.optimize_intrinsics, b.depth_pairs, geom_batched=batched)
                         pend.append((dict(kind="plain", gi=gi, ti="depth", w=self.depth_weight,
                                           batch=b, nint=nint, P=P), out))
 

@@ -17,12 +17,19 @@ the first scale (kept beside the cloud cache when there is one);
 from the initial state. ``--depth_residuals_weight`` is passed to the
 optimizer, which, as in the JAX tool, is given no depth maps here.
 
-Not ported yet (the flags exist and raise): more than one device
-(``--devices`` > 1, ``--mesh``; ROADMAP A.11).
+``--devices N`` (0 = every card of the host) or ``--mesh HxD`` shard each
+image chunk's H,b accumulation over N (H x D) ranks, one process per device
+(``parallel/photometric.py``); visibility, costs and the solve stay
+replicated. Without the ``DPT_*`` environment the tool starts the ranks on
+this host itself and returns when they end; under it, this process is one
+rank of a run launched elsewhere, and ``--devices`` must be 0 or the world
+size. Rank 0 alone writes the output states, the debug cloud, the caches
+and ``timing.json`` (each JAX process writes them); with a cache dir the
+other ranks set up after it, from its files.
 
 Run: ``python -m dataset_pipeline_tpu_torch.tools.image_registrator
 --scan_alignment_path scans.mlp --image_base_path images --state_path state
---output_folder_path out [--device cpu]``.
+--output_folder_path out [--device cpu] [--devices 2]``.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from dataset_pipeline_tpu_torch.io.state import ImageState, ModelState, load_col
 from dataset_pipeline_tpu_torch.models import cameras as cm
 from dataset_pipeline_tpu_torch.models.lie import SE3, quat_to_matrix
 from dataset_pipeline_tpu_torch.ops.mesh_raster import build_occlusion_mesh
+from dataset_pipeline_tpu_torch.parallel.mesh import cli_mesh, launch, ranks_to_launch
 from dataset_pipeline_tpu_torch.photometric.cache import (
     load_multiscale_cache,
     load_photo_levels_cache,
@@ -63,14 +71,6 @@ from dataset_pipeline_tpu_torch.photometric.problem import (
 )
 from dataset_pipeline_tpu_torch.utils.params import Parameters
 from dataset_pipeline_tpu_torch.utils.timing import StageTimer
-
-
-class NotPortedError(NotImplementedError):
-    pass
-
-
-def _not_ported(what: str, item: str) -> NotPortedError:
-    return NotPortedError(f"{what} is not ported yet (ROADMAP A, {item})")
 
 
 def _pose_matrix(im: ImageState) -> np.ndarray:
@@ -183,12 +183,6 @@ def write_debug_colored_cloud(path: str, opt: PhotometricOptimizer, points: np.n
     write_ply(path, PointCloud(np.asarray(points, np.float32), None, colors))
 
 
-def _check_not_ported(args):
-    if args.devices != 1 or args.mesh:
-        raise _not_ported("more than one device (--devices, --mesh)",
-                          "11, parallel/photometric.py")
-
-
 def parse_args(argv=None):
     """The CLI's (args, Parameters)."""
     p = argparse.ArgumentParser(description=__doc__)
@@ -214,8 +208,12 @@ def parse_args(argv=None):
                    help="after the first scale, compact per-image candidate point views and "
                         "persist them next to the multi-res cloud cache")
     p.add_argument("--devices", type=int, default=1,
-                   help="devices to shard the photometric passes over (only 1 is ported)")
-    p.add_argument("--mesh", default="", help="device mesh topology (not ported yet)")
+                   help="shard the photometric H,b accumulation over a mesh of this many "
+                        "devices, one rank each (0 = all available); images are the sharded "
+                        "axis (parallel/photometric.py)")
+    p.add_argument("--mesh", default="",
+                   help='2-axis mesh topology "HxD" (hosts x devices per host): shards the '
+                        "image axis over both axes; overrides --devices. E.g. 2x4")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when CUDA is absent")
     Parameters().add_to_argparser(p)
@@ -245,11 +243,12 @@ def _occlusion_geometry(args, all_pts, device):
 
 
 def build_problem(args, params: Parameters, device, timer: StageTimer,
-                  stats: dict | None = None):
+                  stats: dict | None = None, writes: bool = True):
     """The set-up stages: scans, rigs, images and poses, the occlusion
     geometry, the multi-resolution cloud and the point levels (from the
-    cache dir when it holds them). Returns (problem, state, scans, the rig
-    configurations of ``rigs.json`` or [])."""
+    cache dir when it holds them; ``writes`` saves what was built there).
+    Returns (problem, state, scans, the rig configurations of ``rigs.json``
+    or [])."""
     ignore = {int(v) for v in args.camera_ids_to_ignore.split(",") if v}
     with timer.stage("load_scans"):
         scans = load_scan_set(args.scan_alignment_path)
@@ -292,7 +291,7 @@ def build_problem(args, params: Parameters, device, timer: StageTimer,
                 min_radius_bias=params.min_radius_bias,
                 merge_distance_factor=params.merge_distance_factor,
                 occlusion_threshold=params.occlusion_depth_threshold)
-        if cache_dir:
+        if cache_dir and writes:
             save_multiscale_cache(cache_dir, levels_raw, cache_params)
     levels = load_photo_levels_cache(cache_dir, cache_params, device) if cache_dir else None
     if levels is not None:
@@ -307,7 +306,7 @@ def build_problem(args, params: Parameters, device, timer: StageTimer,
                                        device=device)
                 if pl is not None:
                     levels.append(pl)
-        if cache_dir:
+        if cache_dir and writes:
             save_photo_levels_cache(cache_dir, levels, cache_params)
     print(f"{len(levels)} point levels: " + ", ".join(str(len(l.points)) for l in levels))
     if stats is not None:
@@ -324,12 +323,18 @@ def build_problem(args, params: Parameters, device, timer: StageTimer,
 
 
 def make_optimizer(problem: PhotoProblem, args, params: Parameters,
-                   timings: dict | None = None) -> PhotometricOptimizer:
+                   timings: dict | None = None, mesh=None) -> PhotometricOptimizer:
     return PhotometricOptimizer(
         problem, optimize_intrinsics=not args.fix_intrinsics,
         fixed_weight=params.fixed_residuals_weight,
         variable_weight=params.variable_residuals_weight,
-        depth_weight=params.depth_residuals_weight, timings=timings)
+        depth_weight=params.depth_residuals_weight, timings=timings, mesh=mesh)
+
+
+def _rank(argv):
+    """One rank of a run that ``main`` started: (exit code, timings, stats)."""
+    timings, stats = {}, {}
+    return main(argv, timings, stats), timings, stats
 
 
 def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> int:
@@ -337,17 +342,44 @@ def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> i
     per-stage seconds (occlusion, visibility, hb_accumulate, ...); ``stats``
     receives the level sizes and, per scale, the observations and entry
     cost of every iteration, the optimum cost and the observations cache's
-    hit rate."""
+    hit rate. In a rank of a mesh ``stats["collectives"]`` holds the
+    backend and the mesh's collective calls and seconds. When this call
+    starts the ranks itself, both come from rank 0, and ``stats["ranks"]``
+    holds every rank's timings, kernel launches and collectives."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, params = parse_args(argv)
     device = resolve_device(args.device)
-    _check_not_ported(args)
+    n_ranks = ranks_to_launch(args.devices, args.mesh, device)
+    if n_ranks:
+        results = launch(_rank, n_ranks, (argv,), device)
+        (rc, t0, s0), _ = results[0]
+        if timings is not None:
+            timings.update(t0)
+        if stats is not None:
+            stats.update(s0, ranks=[dict(timings=t, launches=launches, collectives=s["collectives"])
+                                    for (_, t, s), launches in results])
+        return max(r[0][0] for r in results)
+    mesh = cli_mesh(args.devices, args.mesh, device)
+    writes = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        device = mesh.device
+        if writes:
+            print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} over {mesh.backend}, "
+                  f"one rank per device ({device} here)")
     timer = StageTimer(device)
-    problem, state, scans, rig_configs = build_problem(args, params, device, timer, stats)
+    # caches: rank 0 writes them, and with a cache dir the others load its files
+    staged = mesh is not None and mesh.size > 1 and bool(args.multi_res_point_cloud_directory_path)
+    if staged and not writes:
+        mesh.barrier()
+    problem, state, scans, rig_configs = build_problem(args, params, device, timer, stats,
+                                                       writes)
+    if staged and writes:
+        mesh.barrier()
     global_count = problem.scale_count
-    opt = make_optimizer(problem, args, params, timings)
+    opt = make_optimizer(problem, args, params, timings, mesh)
     os.makedirs(args.output_folder_path, exist_ok=True)
 
-    if args.write_debug_point_clouds:
+    if args.write_debug_point_clouds and writes:
         dbg_path = os.path.join(args.output_folder_path, "initial_point_cloud.ply")
         if os.path.exists(dbg_path):
             print("not writing initial point cloud: already exists")
@@ -357,6 +389,8 @@ def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> i
             print(f"wrote {dbg_path}")
 
     def on_scale_done(o: PhotometricOptimizer, report):
+        if not writes:
+            return
         factor = 2.0 ** (-o.current_scale)
         out = os.path.join(args.output_folder_path, f"scale_{factor:g}_state")
         meta = {"optimum_cost": report.optimum_cost, "iterations": report.iterations,
@@ -380,7 +414,7 @@ def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> i
     while True:
         costs, observations = [], []
         with timer.stage(f"optimize_scale_{opt.current_scale}"):
-            report = opt.run_on_current_scale(args.max_iterations, print_progress=True,
+            report = opt.run_on_current_scale(args.max_iterations, print_progress=writes,
                                               iteration_costs=costs, observations=observations)
         on_scale_done(opt, report)
         if stats is not None:
@@ -402,9 +436,12 @@ def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> i
         first_scale_done = True
         if opt.current_scale <= end_scale or not opt.next_scale():
             break
-    print("stage timing:\n" + timer.summary())
-    timer.dump_json(os.path.join(args.output_folder_path, "timing.json"))
-    print("finished")
+    if stats is not None and mesh is not None:
+        stats["collectives"] = dict(backend=mesh.backend, calls=mesh.calls, seconds=mesh.seconds)
+    if writes:
+        print("stage timing:\n" + timer.summary())
+        timer.dump_json(os.path.join(args.output_folder_path, "timing.json"))
+        print("finished")
     return 0
 
 

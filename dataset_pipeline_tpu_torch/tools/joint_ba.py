@@ -15,12 +15,18 @@ rewritten after every iteration), the COLMAP state (image poses + shared
 intrinsics) and ``metadata.txt`` with the LM cost trace; ``timing.json`` at
 the output root.
 
-Not ported yet (the flags exist and raise): more than one device
-(``--devices`` > 1, ``--mesh``; ROADMAP A, A.4).
+``--devices N`` (0, the default: every card of the host, one on the CPU)
+or ``--mesh HxD`` shard the images (frames on the rig route) and the ICP
+rows over N (H x D) ranks, one process per device; S, rhs, cost and count
+are summed over the ranks and every rank applies the same update. Without
+the ``DPT_*`` environment the tool starts the ranks on this host itself and
+returns when they end; under it, this process is one rank of a run launched
+elsewhere, and ``--devices`` must be 0 or the world size. Rank 0 alone
+writes the output files and ``timing.json`` (each JAX process writes them).
 
 Run: ``python -m dataset_pipeline_tpu_torch.tools.joint_ba --scene
 a.mlp,a_state,a_images --scene b.mlp,b_state,b_images --output_folder_path
-out [--device cpu]``.
+out [--device cpu] [--devices 2]``.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from dataset_pipeline_tpu_torch.parallel.joint_ba import (
     refresh_icp_correspondences,
     run_joint_ba,
 )
+from dataset_pipeline_tpu_torch.parallel.mesh import cli_mesh, launch, ranks_to_launch
 from dataset_pipeline_tpu_torch.parallel.joint_ba_rig import (
     RigJointBASystem,
     apply_rig_delta,
@@ -53,7 +60,7 @@ from dataset_pipeline_tpu_torch.parallel.joint_ba_rig import (
 from dataset_pipeline_tpu_torch.photometric.multiscale import build_multiscale_cloud
 from dataset_pipeline_tpu_torch.photometric.problem import PhotoProblem, build_photo_level
 from dataset_pipeline_tpu_torch.photometric.rig import assign_rigs_from_state_dir, mark_rig_groups
-from dataset_pipeline_tpu_torch.tools.image_registrator import _not_ported, load_groups
+from dataset_pipeline_tpu_torch.tools.image_registrator import load_groups
 from dataset_pipeline_tpu_torch.utils.params import Parameters
 from dataset_pipeline_tpu_torch.utils.timing import StageTimer
 
@@ -191,8 +198,10 @@ def parse_args(argv=None):
     p.add_argument("--normal_estimation_neighbor_count", type=int, default=8)
     p.add_argument("--fix_intrinsics", action="store_true")
     p.add_argument("--devices", type=int, default=0,
-                   help="devices (0 or 1: one device; more is not ported yet)")
-    p.add_argument("--mesh", default="", help="device mesh topology (not ported yet)")
+                   help="1-D mesh size, one rank per device (0 = all available devices)")
+    p.add_argument("--mesh", default="",
+                   help='2-axis topology "HxD" (hosts x devices); overrides --devices. '
+                        "Example: --mesh 2x4")
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when CUDA is absent")
     Parameters().add_to_argparser(p)
@@ -231,11 +240,20 @@ def _scene_images(sc, pose_q, pose_t, base: int, state_params, extr, fix_intrins
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, params = parse_args(argv)
     device = resolve_device(args.device)
-    if args.devices > 1 or args.mesh:
-        raise _not_ported("more than one device (--devices, --mesh)", "A.4")
-    print(f"device: {device}")
+    n_ranks = ranks_to_launch(args.devices, args.mesh, device)
+    if n_ranks:
+        return max(rc for rc, _ in launch(main, n_ranks, (argv,), device))
+    mesh = cli_mesh(args.devices, args.mesh, device)
+    writes = mesh is None or mesh.rank == 0
+    if mesh is None:
+        print(f"device: {device}")
+    else:
+        device = mesh.device
+        print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))} over {mesh.backend}, one rank per "
+              f"device ({device} here)")
     timer = StageTimer(device)
 
     scenes, metas, clouds = [], [], {}
@@ -268,7 +286,8 @@ def main(argv=None) -> int:
 
     with timer.stage("pack_scenes"):
         pack_fn = pack_rig_scenes if rig_mode else pack_scenes
-        pack = pack_fn(device, scenes, optimize_intrinsics=not args.fix_intrinsics,
+        pack = pack_fn(device if mesh is None else mesh, scenes,
+                       optimize_intrinsics=not args.fix_intrinsics,
                        occlusion_radius=params.splat_radius,
                        occlusion_depth_threshold=params.occlusion_depth_threshold)
     if rig_mode:
@@ -283,10 +302,13 @@ def main(argv=None) -> int:
         def icp_refresh(pk, st):
             refresh_icp_correspondences(pk, st, clouds, args.max_corr_distance)
 
-    os.makedirs(args.output_folder_path, exist_ok=True)
+    if writes:
+        os.makedirs(args.output_folder_path, exist_ok=True)
 
     def write_mlps(st):
         # rewritten every iteration, so that a killed run leaves usable scan poses
+        if not writes:
+            return
         cq = st["corr_q"].double().cpu().numpy()
         ct = st["corr_t"].double().cpu().numpy()
         for si2, (scans2, _) in enumerate(metas):
@@ -321,6 +343,8 @@ def main(argv=None) -> int:
           f"cost {res.costs[0]:.6f} -> {res.costs[-1]:.6f}")
 
     write_mlps(res.state)
+    if not writes:
+        return 0
     pose_q = res.state["pose_q"].double().cpu().numpy()
     pose_t = res.state["pose_t"].double().cpu().numpy()
     extr = ((res.state["extr_q"].double().cpu().numpy(), res.state["extr_t"].double().cpu().numpy())

@@ -26,6 +26,7 @@ import torch
 
 from dataset_pipeline_tpu.io import colmap as jcio
 from dataset_pipeline_tpu.io.meshlab import read_meshlab_project
+from dataset_pipeline_tpu_torch.parallel import mesh as tmesh
 from dataset_pipeline_tpu_torch.tools import image_registrator as treg
 from dataset_pipeline_tpu_torch.tools import joint_ba as tjb_tool
 
@@ -133,11 +134,17 @@ def test_flags_match_jax_tool(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--devices", "2"], ["--mesh", "1x2"]])
-def test_more_than_one_device_is_not_ported(scenes, flags):
+def test_more_than_one_device_is_not_ported(scenes, flags, monkeypatch):
+    """More than one device, ported since: the flags make the tool start two
+    ranks itself (``tests/test_torch_cli_joint_ba_devices.py`` runs them),
+    and nothing raises NotPortedError any more."""
+    for k in ("DPT_COORDINATOR", "DPT_NUM_PROCESSES", "DPT_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     root, args = scenes
-    with pytest.raises(treg.NotPortedError, match="A.4"):
-        tjb_tool.main(args["plain"] + ["--output_folder_path", str(root / "unused"),
-                                       "--device", "cpu"] + flags)
+    parsed, _ = tjb_tool.parse_args(args["plain"] + ["--output_folder_path", str(root / "unused"),
+                                                     "--device", "cpu"] + flags)
+    assert tmesh.ranks_to_launch(parsed.devices, parsed.mesh, parsed.device) == 2
+    assert not hasattr(treg, "NotPortedError")
 
 
 def test_defaults_to_the_card(scenes, monkeypatch):

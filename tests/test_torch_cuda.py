@@ -767,3 +767,57 @@ def test_joint_ba_on_the_card_matches_cpu(cuda_device, tmp_path, rig):
         ca, cb = (np.asarray(open(x / "metadata.txt").read().splitlines()[2].split()[1:], float)
                   for x in (a, b))
         np.testing.assert_allclose(ca, cb, rtol=1e-4)
+
+
+SHARDED_ROWS, SHARDED_CLOUDS = 8_000_000, 2  # bench.py's headline size; the engine's chunk
+
+
+def _sharded_rank(seed: int):
+    """A rank of the card tests: its share of the rows through the sharded
+    ICP H, b (B4a) and the sharded moment Gram (B2)."""
+    from dataset_pipeline_tpu_torch.entry import sharded_icp_problem
+    from dataset_pipeline_tpu_torch.parallel import mesh as tmesh
+    from dataset_pipeline_tpu_torch.parallel.normal_equations import (
+        sharded_icp_hb,
+        sharded_moment_gram,
+    )
+
+    tmesh.initialize_distributed(device="cuda")
+    mesh = tmesh.make_data_mesh(device="cuda")
+    q, t, *rows = sharded_icp_problem(SHARDED_ROWS, SHARDED_CLOUDS, seed)
+    rows = [tmesh.shard_rows(mesh, x) for x in rows]
+    H, b, cost = sharded_icp_hb(mesh, tmesh.replicated(mesh, q), tmesh.replicated(mesh, t), *rows,
+                                SHARDED_CLOUDS)
+    P = sharded_moment_gram(mesh, *rows[:4], rows[6])
+    return mesh.backend, H.cpu().numpy(), b.cpu().numpy(), float(cost), P.cpu().numpy()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_icp_hb_and_moment_gram_match_one_process(cuda_device, world, backend):
+    """World 1 over NCCL and world 2 sharing the card over Gloo: every rank's
+    summed H, b, cost and moment Gram against the one-process kernels' at 8M
+    correspondences, within the JAX tests' bounds (tests/test_parallel.py:
+    H, b rtol 1e-4 / atol 1e-3, the cost 1e-5; the Gram rtol 1e-5 / atol 1e-5
+    max|P|); B4a and B2 ran in the ranks."""
+    from dataset_pipeline_tpu_torch import kernels
+    from dataset_pipeline_tpu_torch.entry import sharded_icp_problem
+    from dataset_pipeline_tpu_torch.parallel import mesh as tmesh
+
+    q, t, *rows = (torch.as_tensor(x, device=cuda_device)
+                   for x in sharded_icp_problem(SHARDED_ROWS, SHARDED_CLOUDS, 5))
+    H1, b1, c1 = (x.cpu().numpy() for x in gn.icp_hb_cost_rows(q, t, *rows, SHARDED_CLOUDS))
+    data, _ = tm.pack_group_data([dict(ps=rows[0], ns=rows[1], pt=rows[2], nt=rows[3],
+                                       w=rows[6])], 49152, rows=13)
+    P1 = gn.moment_gram_partials(data, 49152)[0].sum(0, dtype=torch.float64).cpu().numpy()
+    del q, t, rows, data
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    results = tmesh.launch(_sharded_rank, world, (5,), "cuda")
+    assert kernels.LAUNCHES["gn_rows"] == world and kernels.LAUNCHES["moment_gram"] == world
+    for (got_backend, H, b, cost, P), _ in results:
+        assert got_backend == backend
+        np.testing.assert_allclose(H, H1, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(b, b1, rtol=1e-4, atol=1e-3)
+        np.testing.assert_allclose(cost, float(c1), rtol=1e-5)
+        np.testing.assert_allclose(P, P1, rtol=1e-5, atol=1e-5 * np.abs(P1).max())

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from dataset_pipeline_tpu.io import colmap as jcio
+from dataset_pipeline_tpu_torch.parallel import mesh as tmesh
 from dataset_pipeline_tpu_torch.tools import image_registrator as treg
 from dataset_pipeline_tpu_torch.utils.synthetic import write_scene
 
@@ -114,17 +115,18 @@ def test_image_registrator_matches_jax_tool(scene):
                                    ["--depth_residuals_weight", "1"],
                                    ["--multi_res_point_cloud_directory_path", "cache"],
                                    ["--occlusion_mesh_path", "mesh.ply"]])
-def test_paths_not_ported_yet_raise(tmp_path, extra):
-    """More than one device (``--devices`` > 1, ``--mesh``) is still not
-    ported and raises before any work; every other flag of the list is
-    accepted (``tests/test_torch_cli_registrator_remainders.py`` holds each
-    against the JAX tool)."""
+def test_paths_not_ported_yet_raise(tmp_path, extra, monkeypatch):
+    """No flag of the list raises any more: each is accepted
+    (``tests/test_torch_cli_registrator_remainders.py`` holds each against
+    the JAX tool), and more than one device (``--devices 2``, ``--mesh
+    1x2``), ported since, makes the tool start two ranks itself
+    (``tests/test_torch_cli_registrator_devices.py`` runs them)."""
+    for k in ("DPT_COORDINATOR", "DPT_NUM_PROCESSES", "DPT_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     args, _ = treg.parse_args(_args(tmp_path, "out", ["--device", "cpu", *extra]))
-    if extra[0] in ("--devices", "--mesh"):
-        with pytest.raises(treg.NotPortedError, match="not ported yet"):
-            treg.main(_args(tmp_path, "out", ["--device", "cpu", *extra]))
-    else:
-        treg._check_not_ported(args)
+    n_ranks = tmesh.ranks_to_launch(args.devices, args.mesh, args.device)
+    assert n_ranks == (2 if extra[0] in ("--devices", "--mesh") else 0)
+    assert not hasattr(treg, "NotPortedError")
 
 
 def test_cuda_device_without_cuda_raises(tmp_path):
