@@ -139,6 +139,18 @@ It builds the hand-written CUDA kernels from ``dataset_pipeline_tpu_torch/csrc``
   B3 is held against its plain version at the inspector's first value-mode
   and the pair's first derivs-mode launch.
 
+- Slice 8, the rest of ``bench.py`` (B3 on five new paths): ``tools.bench.main``
+  at ``bench.py``'s sizes, every section but ``scaling`` (slice 7 runs the
+  scaling bench), the ICP section's results taken from the ICP measurement
+  path's run: the batched photometric H,b, the gather cost model, cube maps,
+  GT depth, the two registrator runs, the joint-BA system and dense step, and
+  the four C++ reference baselines. Every value finite, every ``ref_cpp_*``
+  key present, the DSLR iterations lower the cost, joint BA's descent lowers
+  its cost, no GT frame empty, no cube pixel uncoloured, no read rate above
+  the card's stated peak, B3 launched by each of the five sections that sample
+  images and held against its plain version at the DSLR section's first
+  derivs-mode launch.
+
 It fails (non-zero exit, no result line) if CUDA is absent, a kernel does
 not build, launch or agree, a path did not launch each of its kernels, the
 LM ladders launch B1 more than twice per iteration, the
@@ -147,7 +159,7 @@ lower the cost and the pose error, the engines of the A/B end at different
 poses, the repeat slope and the event time of the moment pass disagree, the
 read bandwidth or a probe's rate comes out above the card's stated peak, the
 brick path and B3 disagree, or a check of the ground-truth, slice-4, joint-BA,
-multi-device or slice-7 phase misses (a rank that fails fails the run). The last line is
+multi-device, slice-7 or slice-8 phase misses (a rank that fails fails the run). The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and the one before that the per-kernel JSON.
 """
@@ -1492,7 +1504,8 @@ def b3_input_stats(torch, layout, pix, scale) -> str:
 
 def check_b3_at_captured(torch, tps, cap: dict, label: str, flat_sampler=None):
     """B3 in derivs mode at a launch's own inputs against its float32 plain
-    version, its time and tap sectors there, and with ``flat_sampler`` the
+    version (the value within B3_VALUE_TOL, the derivatives within
+    B3_DERIV_TOL), its time and tap sectors there, and with ``flat_sampler`` the
     flat-pyramid kernel against it there."""
     flat, layout = cap["flat"].cuda(), cap["layout"]
     pix, scale = cap["pix"].cuda(), cap["scale"].cuda()
@@ -1505,8 +1518,10 @@ def check_b3_at_captured(torch, tps, cap: dict, label: str, flat_sampler=None):
     p32 = tps.sample_plain(flat, layout, pix, scale, True)
     if not torch.equal(ok, p32[-1]):
         fail(f"B3 at {label}'s inputs: ok differs from the f32 plain version")
-    err = max(float((a - b)[ok].abs().max()) if bool(ok.any()) else 0.0
-              for a, b in zip(k[:-1], p32[:-1]))
+    errs = [float((a - b)[ok].abs().max()) if bool(ok.any()) else 0.0 for a, b in zip(k[:-1], p32[:-1])]
+    err_value, err = errs[0], max(errs)
+    if not err_value <= B3_VALUE_TOL:
+        fail(f"B3 derivs mode at {label}'s inputs: value max|k - plain| {err_value:.3e} > {B3_VALUE_TOL}")
     if not err <= B3_DERIV_TOL:
         fail(f"B3 derivs mode at {label}'s inputs: max|k - plain| {err:.3e} > {B3_DERIV_TOL}")
     times = kernel_ms(lambda: tps.pyramid_sample(flat, layout, pix, scale, True, pairs), torch)
@@ -1515,14 +1530,15 @@ def check_b3_at_captured(torch, tps, cap: dict, label: str, flat_sampler=None):
     b = bound(sectors["distinct"] * 32 + streamed, 100 * obs)
     print(f"B3 pyramid_sample derivs at {label}'s inputs: {nb} images, levels "
           f"{list(zip(layout.ws, layout.hs))}, {obs} observations ({b3_input_stats(torch, layout, pix, scale)}), "
-          f"ok {float(ok.float().mean()):.3f}; max|k - f32 plain| where ok {err:.3e}; kernel "
+          f"ok {float(ok.float().mean()):.3f}; max|k - f32 plain| where ok {err:.3e} (value "
+          f"{err_value:.3e}); kernel "
           f"{times['ms']:.4f} ms ({times['ms_one_launch']:.4f} ms for one launch between its events); "
           f"taps in the flat pyramid touch {sectors['requests'] / obs:.3f} sectors/obs, "
           f"{sectors['distinct']} distinct ({sectors['distinct'] / obs:.3f}/obs); in the row-paired "
           f"copy {paired['requests'] / obs:.3f} sectors/obs, {paired['distinct']} distinct; bound "
           f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
-    res = {"obs": obs, "max_abs_err": err, **times, **b, "sectors_per_obs": paired["requests"] / obs,
-           "flat_sectors_per_obs": sectors["requests"] / obs, "distinct_sectors": sectors["distinct"]}
+    res = {"obs": obs, "max_abs_err": err, "max_abs_err_value": err_value, **times, **b,
+           "sectors_per_obs": paired["requests"] / obs, "flat_sectors_per_obs": sectors["requests"] / obs, "distinct_sectors": sectors["distinct"]}
     if flat_sampler is not None:
         res["flat_sampler"] = compare_b3_with_flat_sampler(torch, tps, flat_sampler, flat, layout, pix,
                                                            scale, pairs, label)
@@ -3445,6 +3461,71 @@ def run_slice7(torch, kernels, optimizer, synthetic, cio, gn, pack_group_data, r
     return res, by_path, cap_insp, cap_pair
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: the rest of bench.py through the port's bench tool
+# ---------------------------------------------------------------------------
+
+BENCH_REF_KEYS = ("ref_cpp_icp_corr_per_s", "ref_cpp_photo_obs_per_s", "ref_cpp_cubemap_faces_per_s",
+                  "ref_cpp_gt_depth_frames_per_s")
+BENCH_B3_SECTIONS = ("photometric_hb", "registrator_e2e", "registrator_dslr", "joint_ba", "joint_ba_dense")
+BENCH_RATES = ("hbm_copy_gbps", "icp_moment_pass_gbps", "icp_moment_pass_gbps_max", "gather_micro_gbps",
+               "gather_row128_gbps")  # GB/s read from the card's memory
+BENCH_HB_OBS = 8 * 262_144  # photometric_hb: images x points at bench.py's sizes
+
+
+def run_slice8(torch, kernels, optimizer, tps, bench_tool, icp_res: dict):
+    """``tools.bench.main`` at ``bench.py``'s sizes on the card, every section
+    but ``scaling`` (slice 7 runs it), the ICP section's results handed over
+    from ``run_icp_bench`` so that it runs once. Keeps the inputs of the DSLR
+    section's first derivs-mode B3 launch and holds B3 against its plain
+    version there. Returns (results, launches by path, B3's check)."""
+    t0 = time.perf_counter()
+    res = {}
+    kernels.reset_launch_counts()
+    with CaptureB3(optimizer, "_hb_batch", lambda a: a[0].width == 3072) as cap:
+        rc = bench_tool.main(["--device", "cuda", "--skip", "scaling"], results=res, icp=icp_res)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    if rc != 0 or "errors" in res:
+        fail(f"tools.bench returned {rc}: {res.get('errors')}")
+    m = res["metrics"]
+    values = {k: v for k, v in m.items() if not isinstance(v, (dict, str))}
+    values.update({f"kernel_variants_ms.{k}": v for k, v in m["kernel_variants_ms"].items()})
+    missing = [k for k in BENCH_REF_KEYS if k not in m]
+    if missing:
+        fail(f"tools.bench: no C++ baseline {missing}")
+    values.update(value=res["value"], vs_baseline=res["vs_baseline"])
+    bad = [k for k, v in values.items() if not np.isfinite(v)]
+    if bad:
+        fail(f"tools.bench: non-finite values for {bad}")
+    checks = {
+        "registrator_dslr_obs_per_iter > 0": m["registrator_dslr_obs_per_iter"] > 0,
+        "the DSLR section's timed iterations lower the cost":
+            m["registrator_dslr_cost_optimum"] < m["registrator_dslr_cost_first"],
+        f"photometric_hb_count > {BENCH_HB_OBS // 2}": m["photometric_hb_count"] > BENCH_HB_OBS // 2,
+        "joint_ba_cost_final < joint_ba_cost0": m["joint_ba_cost_final"] < m["joint_ba_cost0"],
+        "every GT frame has a valid pixel": m["gt_depth_valid_px_min"] > 0,
+        "every cube-face pixel is coloured": m["cubemap_uncoloured_px"] == 0,
+    }
+    checks.update({f"{k} <= {HBM_CEILING} x the stated peak": m[k] <= HBM_CEILING * HBM_BYTES_PER_S / 1e9
+                   for k in BENCH_RATES})
+    checks.update({f"{s} launched B3": m[f"{s}_b3_launches"] > 0 for s in BENCH_B3_SECTIONS})
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        fail(f"tools.bench: {failed}")
+    if not cap:
+        fail("tools.bench: no derivs-mode B3 launch in the DSLR section to keep the inputs of")
+    b3 = check_b3_at_captured(torch, tps, cap, "the bench's DSLR section's first derivs launch")
+    del cap
+    torch.cuda.empty_cache()
+    print(f"slice-8 phase (tools.bench): {wall:.1f} s; launches {launches}; B3 a section: "
+          + ", ".join(f"{s} {m[f'{s}_b3_launches']}" for s in BENCH_B3_SECTIONS)
+          + f"; headline {res['value']:.4g} corr*iters/s, vs_baseline {res['vs_baseline']:.4g}")
+    print(json.dumps({"bench": res}))
+    return res, {"bench": launches}, b3
+
+
 def check_no_jax() -> None:
     if any(m in ("jax", "dataset_pipeline_tpu") or m.startswith(("jax.", "dataset_pipeline_tpu."))
            for m in sys.modules):
@@ -3502,6 +3583,9 @@ def main(argv=None) -> int:
         from dataset_pipeline_tpu_torch.photometric import localize, pair_alignment  # noqa: F401
         from dataset_pipeline_tpu_torch.tools import dataset_inspector  # noqa: F401
         from dataset_pipeline_tpu_torch.utils import profiling, scaling_bench  # noqa: F401
+        # slice 8's modules
+        from dataset_pipeline_tpu_torch import refbench  # noqa: F401
+        from dataset_pipeline_tpu_torch.tools import bench as bench_tool
     except ImportError as e:
         fail(f"cannot import the port (run from the repository root): {e}")
     check_no_jax()
@@ -3662,7 +3746,12 @@ def main(argv=None) -> int:
     variants = check_moment_variants(torch, gn, pack_group_data, seed=7)
     torch.cuda.empty_cache()
     print(f"B4a, B4b, B4c, B5a, B5b checks: {time.perf_counter() - t0:.1f} s")
-    _, bench = run_icp_bench(torch, kernels, icp_bench, entry)
+    icp_res, bench = run_icp_bench(torch, kernels, icp_bench, entry)
+    torch.cuda.empty_cache()
+
+    # slice 8: the rest of bench.py, the ICP section's results handed over
+    _, slice8_launches, b3_bench = run_slice8(torch, kernels, optimizer, tps, bench_tool, icp_res)
+    del icp_res
     torch.cuda.empty_cache()
 
     # the gather-wall path
@@ -3690,12 +3779,12 @@ def main(argv=None) -> int:
     # B3 have two launch modes), and this run's numbers
     by_path = {"icp_scan_aligner": launches, "image_registrator": reg, "icp_bench": bench,
                "gather_probe": probe_launches, **slice4_launches, "joint_ba": slice5_launches,
-               **slice6_launches, **slice7_launches}
+               **slice6_launches, **slice7_launches, **slice8_launches}
     measured = {"gn_fused": b1, "moment_gram": b2,
                 "pyramid_sample": {**b3["derivs"],
                                    **{k: b3[k] for k in ("pair_build", "dslr_inputs", "flat_sampler") if k in b3},
                                    "slice4_inputs": b3_slice4, "joint_ba_inputs": b3_slice5,
-                                   "slice7_inputs": b3_slice7},
+                                   "slice7_inputs": b3_slice7, "bench_inputs": b3_bench},
                 "gn_rows": b4a,
                 "hbm_read_sum": b5b, **variants, **probes}
     report = []

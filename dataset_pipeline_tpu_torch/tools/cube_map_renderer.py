@@ -62,6 +62,17 @@ def render_cube_map(positions: np.ndarray, colors, size: int, device=None,
     if colors is None:
         colors = np.zeros((len(positions), 3), np.uint8)
     cols = torch.as_tensor(np.asarray(colors, np.uint8), device=dev)
+    depth, color = render_faces(pos, cols, size, timings, stats)
+    depth, color = depth.cpu().numpy(), color.cpu().numpy()
+    return {name: (depth[i], color[i]) for i, name in enumerate(CUBE_FACE_NAMES)}
+
+
+def render_faces(pos, cols, size: int, timings: dict | None = None, stats: dict | None = None):
+    """The six faces of (N,3) float32 points with (N,3) uint8 colours on
+    their device: (depth (6,S,S) float32, colour (6,S,S,3) uint8), in
+    ``CUBE_FACE_NAMES`` order; ``timings`` and ``stats`` as in
+    :func:`render_cube_map`."""
+    dev = pos.device
     f = size / 2.0
     c = size // 2
     with stage(timings, "render", dev):
@@ -72,8 +83,7 @@ def render_cube_map(positions: np.ndarray, colors, size: int, device=None,
         color, valid = fill_color_from_depth(depth_raw, color_raw)
     with stage(timings, "flood_fill", dev):
         color = flood_fill_colors(color, valid, stats=stats)
-    depth, color = depth.cpu().numpy(), color.cpu().numpy()
-    return {name: (depth[i], color[i]) for i, name in enumerate(CUBE_FACE_NAMES)}
+    return depth, color
 
 
 def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> int:

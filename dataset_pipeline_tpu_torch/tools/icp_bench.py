@@ -267,6 +267,24 @@ def bench_kernel_variants(m: int, device) -> dict:
     return out
 
 
+def measure(m: int, engine_ms, device) -> dict:
+    """Every measurement of the ICP path on ``device``, under ``bench.py``'s
+    keys, with the shares of the card's published peaks on the card."""
+    on_card = device.type == "cuda"
+    out = {"device": torch.cuda.get_device_name(device) if on_card else "cpu",
+           "m": m, "iters": ICP_ITERS}
+    out.update(bench_icp_moments(m, ICP_ITERS, device))
+    out.update(bench_icp_engine_ab(engine_ms, ICP_ITERS, device, device_lm_m=m))
+    out["kernel_variants_ms"] = bench_kernel_variants(m, device)
+    if on_card:  # shares of the card's published peaks, unclipped
+        out["hbm_copy_util_pct"] = 100.0 * out["hbm_copy_gbps"] / H100_HBM_GBPS
+        out["icp_moment_pass_hbm_util_pct"] = 100.0 * out["icp_moment_pass_gbps"] / H100_HBM_GBPS
+        out["icp_moment_pass_fp32_util_pct"] = (
+            100.0 * gn.MOMENT_FLOPS_PER_ROW * out["icp_moment_pass_bytes"] / (4 * gn.PACKED_ROWS)
+            / out["icp_moment_pass_s"] / (H100_FP32_TFLOPS * 1e12))
+    return out
+
+
 def main(argv=None, results: dict | None = None) -> int:
     """Run the measurements and print the JSON line; ``results``, if given,
     receives the same keys."""
@@ -278,21 +296,8 @@ def main(argv=None, results: dict | None = None) -> int:
                    help="comma-separated correspondence counts of the engine A/B; the "
                         "device LM is timed at the one equal to --m")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
-    on_card = device.type == "cuda"
-
-    out = {"device": torch.cuda.get_device_name(device) if on_card else "cpu",
-           "m": args.m, "iters": ICP_ITERS}
-    out.update(bench_icp_moments(args.m, ICP_ITERS, device))
-    out.update(bench_icp_engine_ab([int(v) for v in args.engine_ms.split(",") if v],
-                                   ICP_ITERS, device, device_lm_m=args.m))
-    out["kernel_variants_ms"] = bench_kernel_variants(args.m, device)
-    if on_card:  # shares of the card's published peaks, unclipped
-        out["hbm_copy_util_pct"] = 100.0 * out["hbm_copy_gbps"] / H100_HBM_GBPS
-        out["icp_moment_pass_hbm_util_pct"] = 100.0 * out["icp_moment_pass_gbps"] / H100_HBM_GBPS
-        out["icp_moment_pass_fp32_util_pct"] = (
-            100.0 * gn.MOMENT_FLOPS_PER_ROW * out["icp_moment_pass_bytes"] / (4 * gn.PACKED_ROWS)
-            / out["icp_moment_pass_s"] / (H100_FP32_TFLOPS * 1e12))
+    out = measure(args.m, [int(v) for v in args.engine_ms.split(",") if v],
+                  resolve_device(args.device))
     if results is not None:
         results.update(out)
     print(json.dumps(out))

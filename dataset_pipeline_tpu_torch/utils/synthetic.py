@@ -313,3 +313,125 @@ def write_rgbd_pair(root: str, width: int, height: int, f: float, motion,
         fh.write("a_t_b " + " ".join(repr(float(v)) for v in a_T_b[:3].reshape(-1)) + "\n")
         fh.write(f"average_scene_depth {mean_depth!r}\n")
     return path
+
+
+# ---------------------------------------------------------------------------
+# The joint-BA test scene: two scans of a wavy surface and two rendered images
+# (the JAX package's tests/test_joint_ba.py:_build_scene, with the port's ops)
+# ---------------------------------------------------------------------------
+
+JBA_TEST_CAMERA = (128, 96, 110.0, 63.5, 47.5)  # width, height, f, cx, cy
+
+
+def look_at(eye, target=(1.0, 1.0, 0.0)):
+    """(R, t) of a camera at ``eye`` looking at ``target``, its x axis level
+    (image_T_world, float64 numpy)."""
+    eye = np.asarray(eye, np.float64)
+    fwd = np.asarray(target, np.float64) - eye
+    fwd = fwd / np.linalg.norm(fwd)
+    r = np.cross(fwd, [0.0, 1.0, 0.0])
+    r = r / np.linalg.norm(r)
+    R = np.stack([r, np.cross(fwd, r), fwd])
+    return R, -R @ eye
+
+
+def render_views(points, colors, eyes, width: int, height: int, f: float, cx: float, cy: float,
+                 device=None):
+    """Gray images (n, H, W) uint8 of coloured points seen from ``eyes``
+    (z-buffer, fill-in, colour flood) and their poses' (n, 4, 4) float32
+    matrices."""
+    from dataset_pipeline_tpu_torch.ops.splat import (
+        fill_color_from_depth,
+        flood_fill_colors,
+        render_points_depth_color,
+    )
+
+    dev = default_device(device)
+    cols = torch.as_tensor(np.asarray(colors, np.uint8), device=dev)
+    mats, imgs = [], []
+    for eye in eyes:
+        R, t = look_at(eye)
+        p_cam = torch.as_tensor(points @ R.T + t, dtype=torch.float32, device=dev)
+        d, c = render_points_depth_color(p_cam[None], cols, width, height, f, f, cx, cy)
+        cf, v = fill_color_from_depth(d, c)
+        imgs.append(flood_fill_colors(cf, v)[0, ..., 0].cpu().numpy())
+        m = np.eye(4, dtype=np.float32)
+        m[:3, :3], m[:3, 3] = R, t
+        mats.append(m)
+    return np.stack(imgs), np.stack(mats)
+
+
+def _wavy(xy, phase):
+    x, y = xy[:, 0], xy[:, 1]
+    return np.stack([x, y, 0.1 * np.sin(3 * x + phase) * np.cos(2.5 * y)], -1).astype(np.float32)
+
+
+def _wavy_normals(xy, phase):
+    x, y = xy[:, 0], xy[:, 1]
+    dzdx = 0.3 * np.cos(3 * x + phase) * np.cos(2.5 * y)
+    dzdy = -0.25 * np.sin(3 * x + phase) * np.sin(2.5 * y)
+    n = np.stack([-dzdx, -dzdy, np.ones_like(x)], -1)
+    return (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def joint_ba_test_scene(seed: int, cam, phase: float, scan1_delta, pose_deltas, device=None):
+    """One joint-BA scene: two scans of 800 points each of the same wavy
+    surface and 2 images rendered from its true poses (``cam`` is a PINHOLE
+    camera of ``JBA_TEST_CAMERA``); scan 1 moved by ``SE3.exp(scan1_delta)``
+    and the image poses by ``SE3.exp(pose_deltas)`` away from the truth.
+    Returns (problem, icp, d_scan, poses_gt): ``icp`` holds the ICP
+    correspondences in the perturbed state, each scan-1 point's nearest scan-0
+    point within 5 cm, as (ps, ns, pt, nt, src_scan, tgt_scan) numpy."""
+    from dataset_pipeline_tpu_torch.ops.knn import knn_bruteforce
+    from dataset_pipeline_tpu_torch.photometric.multiscale import PointLevel
+    from dataset_pipeline_tpu_torch.photometric.problem import (
+        ImageGroup,
+        PhotoProblem,
+        build_image_pyramid,
+        build_photo_level,
+    )
+
+    dev = default_device(device)
+    rng = np.random.RandomState(seed)
+    n_half = 800
+    xy0 = rng.uniform(0.2, 1.8, (n_half, 2))
+    xy1 = rng.uniform(0.2, 1.8, (n_half, 2))
+    pts0, pts1 = _wavy(xy0, phase), _wavy(xy1, phase)
+    normals1 = _wavy_normals(xy1, phase)
+    inten = np.concatenate([(128 + 60 * np.sin(7 * xy[:, 0]) * np.cos(9 * xy[:, 1])).clip(5, 250)
+                            for xy in (xy0, xy1)]).astype(np.float32)
+    pts_gt = np.concatenate([pts0, pts1]).astype(np.float32)
+    scans = np.concatenate([np.zeros(n_half), np.ones(n_half)]).astype(np.uint8)
+    cols = np.stack([inten] * 3, -1).astype(np.uint8)
+    W, H, F, CX, CY = JBA_TEST_CAMERA
+    imgs, mats = render_views(pts_gt, cols, ([1.0, 1.0, -2.0], [1.3, 1.1, -1.9]), W, H, F, CX, CY,
+                              dev)
+    poses_gt = SE3.from_matrix(torch.as_tensor(mats, device=dev))
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    # perturb scan 1 (left-multiplicative, global frame) and the image poses
+    d_scan = SE3.exp(f32(scan1_delta))
+    pts = pts_gt.copy()
+    p1_gt = f32(pts_gt[scans == 1])
+    pts[scans == 1] = d_scan.apply(p1_gt).cpu().numpy()
+    normals1_p = (d_scan.apply(p1_gt + f32(normals1)) - d_scan.apply(p1_gt)).cpu().numpy()
+    poses = SE3.exp(f32(pose_deltas)).compose(poses_gt)
+
+    level = build_photo_level(PointLevel(pts, inten, scans, 0.02), apply_gradient_filter=False,
+                              seed=seed, device=dev)
+    group = ImageGroup(camera=cam, pyramid=build_image_pyramid(imgs, 2, device=dev), poses=poses,
+                       image_ids=[0, 1])
+    problem = PhotoProblem(groups=[group], levels=[level], occlusion_points=f32(pts),
+                           occlusion_radius=0.03, scale_count=2)
+
+    p1, p0 = pts[scans == 1], pts[scans == 0]
+    d2, idx = knn_bruteforce(f32(p1), f32(p0), 1)
+    idx = idx[:, 0].cpu().numpy()
+    keep = d2[:, 0].cpu().numpy() < 0.05 ** 2
+    n0 = _wavy_normals(xy0, phase)
+    k = int(keep.sum())
+    icp = (p0[idx][keep], n0[idx][keep], p1[keep], normals1_p[keep],
+           np.zeros(k, np.int32), np.ones(k, np.int32))
+    return problem, icp, d_scan, poses_gt

@@ -933,3 +933,109 @@ def test_align_pair_on_the_card_matches_cpu(cuda_device, tmp_path):
         out[dev] = (poses.q.cpu().numpy(), poses.t.cpu().numpy())
     assert np.abs(out["cuda"][0] - out["cpu"][0]).max() <= 5e-7
     assert np.abs(out["cuda"][1] - out["cpu"][1]).max() <= 5e-7
+
+
+# ---------------------------------------------------------------------------
+# tools/bench.py's sections at toy sizes: the card against the CPU
+# ---------------------------------------------------------------------------
+
+BENCH_COST_RTOL, BENCH_Q_TOL = 1e-4, 5e-7  # the registrator's limits (test_torch_image_registrator.py)
+
+
+@pytest.mark.cuda
+def test_bench_photometric_hb_on_the_card_matches_cpu(cuda_device):
+    """``_hb_batch`` on the photometric_hb inputs (B3 in derivs mode): equal
+    counts, H and b within 1e-4 of their largest entry, the cost 1e-4."""
+    from dataset_pipeline_tpu_torch.tools import bench
+
+    x = bench.photometric_hb_inputs(**{k: v for k, v in bench.TOY["photometric_hb"].items()
+                                       if k != "reps"})
+    W, H = bench.TOY["photometric_hb"]["W"], bench.TOY["photometric_hb"]["H"]
+    got, want = ([t.double().cpu().numpy() for t in bench.photometric_hb_call(x, W, H, d)()]
+                 for d in (cuda_device, torch.device("cpu")))
+    assert int(got[3]) == int(want[3]) > 0
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+    np.testing.assert_allclose(got[2], want[2], rtol=BENCH_COST_RTOL)
+
+
+@pytest.mark.cuda
+def test_bench_gather_sums_on_the_card_match_cpu(cuda_device):
+    """The gather section's two functions: within 1e-5 of the CPU's sums,
+    relative to the sum of the magnitudes added."""
+    from dataset_pipeline_tpu_torch.tools import bench
+
+    J, idx, xs, table, ridx = bench.gather_inputs(n=20_000, nb=2, reps=1, table_mb=1, n_rows=50_000)
+    J, idx, xs, table, ridx = (torch.from_numpy(a) for a in (J, idx, xs[0], table, ridx[0]))
+    idx, ridx = idx.long(), ridx.long()
+    got = bench.gather_micro(J.to(cuda_device), idx.to(cuda_device), xs.to(cuda_device)).cpu()
+    want = bench.gather_micro(J, idx, xs)
+    scale = bench.gather_micro(J.abs(), idx, xs.abs())
+    assert bool(((got - want).abs() <= 1e-5 * scale).all())
+    got = float(bench.gather_rows(table.to(cuda_device), ridx.to(cuda_device)))
+    want = float(bench.gather_rows(table, ridx))
+    assert abs(got - want) <= 1e-5 * float(table[ridx].abs().sum())
+
+
+@pytest.mark.cuda
+def test_bench_cube_faces_on_the_card_match_cpu(cuda_device):
+    """The cube faces of a toy cloud: no pixel uncoloured, depths and
+    colours equal at >= 99.99 % of pixels (equal depths may pick other
+    winners in another order)."""
+    from dataset_pipeline_tpu_torch.tools import bench
+    from dataset_pipeline_tpu_torch.tools.cube_map_renderer import render_faces
+
+    pos, cols = bench._cube_cloud(20_000)
+    out = []
+    for d in (cuda_device, torch.device("cpu")):
+        stats = {}
+        depth, color = render_faces(torch.from_numpy(pos).to(d), torch.from_numpy(cols).to(d), 64,
+                                    stats=stats)
+        assert stats["flood_fill_unfilled"] == 0
+        out.append((depth.cpu().numpy(), color.cpu().numpy()))
+    (dc, cc), (dh, ch) = out
+    assert np.mean(dc == dh) >= 0.9999
+    assert np.mean(np.all(cc == ch, -1)) >= 0.9999
+
+
+@pytest.mark.cuda
+def test_bench_registrator_e2e_on_the_card_matches_cpu(cuda_device):
+    """The two-frame scene at 2 iterations: per-iteration costs within 1e-4,
+    poses within 5e-7."""
+    from dataset_pipeline_tpu_torch.photometric.optimizer import PhotometricOptimizer
+    from dataset_pipeline_tpu_torch.tools import bench
+
+    res = []
+    for d in (cuda_device, torch.device("cpu")):
+        opt = PhotometricOptimizer(bench.registrator_e2e_problem(d)())
+        costs = []
+        opt.current_scale = 0
+        opt.run_on_current_scale(max_iterations=2, iteration_costs=costs)
+        g = opt.p.groups[0]
+        res.append((costs, g.poses.q.cpu().numpy(), g.poses.t.cpu().numpy()))
+    np.testing.assert_allclose(res[0][0], res[1][0], rtol=BENCH_COST_RTOL)
+    for a, b in zip(res[0][1:], res[1][1:]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=BENCH_Q_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("section", ["registrator_dslr", "joint_ba", "joint_ba_dense"])
+def test_bench_section_on_the_card_matches_cpu(cuda_device, section):
+    """A section at its toy size: equal observation and row counts, costs
+    within 1e-4."""
+    from dataset_pipeline_tpu_torch.tools import bench
+
+    fn = {"registrator_dslr": bench.bench_registrator_dslr, "joint_ba": bench.bench_joint_ba_system,
+          "joint_ba_dense": bench.bench_joint_ba_dense}[section]
+    keys = {"registrator_dslr": (("registrator_dslr_obs_per_iter", "registrator_dslr_points"),
+                                 ("registrator_dslr_cost_first", "registrator_dslr_cost_optimum")),
+            "joint_ba": (("joint_ba_rows", "joint_ba_images"), ("joint_ba_cost0", "joint_ba_cost_final")),
+            "joint_ba_dense": (("joint_ba_dense_rows",), ("joint_ba_dense_cost",))}[section]
+    before = gn.LAUNCHES["pyramid_sample_derivs"]
+    got = fn(cuda_device, **bench.TOY[section])
+    assert gn.LAUNCHES["pyramid_sample_derivs"] > before
+    want = fn(torch.device("cpu"), **bench.TOY[section])
+    for k in keys[0]:
+        assert got[k] == want[k] > 0, k
+    for k in keys[1]:
+        np.testing.assert_allclose(got[k], want[k], rtol=BENCH_COST_RTOL, err_msg=k)

@@ -193,6 +193,9 @@ def test_new_modules_import_no_jax():
         "import dataset_pipeline_tpu_torch.entry\n"
         "import dataset_pipeline_tpu_torch.ops.hbm\n"
         "import dataset_pipeline_tpu_torch.tools.icp_bench\n"
+        "import dataset_pipeline_tpu_torch.tools.bench\n"
+        "import dataset_pipeline_tpu_torch.refbench\n"
+        "from dataset_pipeline_tpu_torch.utils.synthetic import joint_ba_test_scene\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'dataset_pipeline_tpu')]\n"
         "sys.exit(1 if bad else 0)\n"
     )
