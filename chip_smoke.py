@@ -1550,6 +1550,8 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
     """The DSLR configuration through the CLI at full resolution. The inputs
     of the run's first derivs-mode B3 launch are kept (on the host, so that
     the peak device memory is the run's own) and returned."""
+    from dataset_pipeline_tpu_torch.utils.timing import stages_text
+
     t0 = time.perf_counter()
     c = synthetic.DSLR
     n_scan, tq, tt = synthetic.write_scene_at_density(
@@ -1591,7 +1593,7 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
     opt_s = tj["optimize_scale_0"]["total_s"]
     obs = sc["observations"]
     print("DSLR stages (s): " + ", ".join(f"{k} {v['total_s']:.3f}" for k, v in tj.items())
-          + "; optimizer: " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+          + "; optimizer: " + stages_text(timings)
           + f"; wall {wall:.3f} s; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"DSLR: levels {stats['levels']} ({sum(stats['levels'])} points); observations per "
@@ -1653,7 +1655,9 @@ def read_raw(path: str, h: int, w: int):
 
 
 def stage_line(label: str, timings: dict) -> str:
-    return f"{label} stages (s): " + ", ".join(f"{k} {v:.3f}" for k, v in timings.items())
+    from dataset_pipeline_tpu_torch.utils.timing import stages_text
+
+    return f"{label} stages (s): " + stages_text(timings)
 
 
 def check_gt_run(torch, gt, synthetic, state, out: str, c: dict, label: str, mesh: bool):

@@ -52,7 +52,8 @@ class ShardedPhotometricKernels:
     ``_hb_rig_batch``, ``_hb_depth_batch``, with their arguments and results
     and JAX's ``geom_batched``) over the ranks of ``mesh``. On a one-rank
     mesh a rank's share is the whole chunk and the collectives are the
-    identity, so the result is the dispatch's own."""
+    identity, so the result is the dispatch's own. ``timings`` goes to the
+    dispatch, whose child spans time this rank's share."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -73,31 +74,33 @@ class ShardedPhotometricKernels:
 
     def hb_batch(self, camera, params, pose_q, pose_t, points, neighbors, desc, flat, layout,
                  obs_scale, contrib, radius, optimize_intrinsics: bool, dynamic_scale: bool,
-                 pairs=None, geom_batched: bool = False):
+                 pairs=None, geom_batched: bool = False, timings=None):
         nb = pose_q.shape[0]
         contrib, (q, t, f, s, pr), (pts, nbr, d) = self._shard(
             nb, contrib, (pose_q, pose_t, flat, obs_scale, pairs), (points, neighbors, desc),
             geom_batched)
         return self._reduce(nb, _opt._hb_batch(camera, params, q, t, pts, nbr, d, f, layout, s,
                                                contrib, radius, optimize_intrinsics,
-                                               dynamic_scale, pr))
+                                               dynamic_scale, pr, timings=timings))
 
     def hb_rig_batch(self, camera, params, extr_q, extr_t, ref_q, ref_t, points, neighbors, desc,
                      flat, layout, obs_scale, contrib, radius, optimize_intrinsics: bool,
-                     dynamic_scale: bool, pairs=None, geom_batched: bool = False):
+                     dynamic_scale: bool, pairs=None, geom_batched: bool = False, timings=None):
         nb = ref_q.shape[0]
         contrib, (q, t, f, s, pr), (pts, nbr, d) = self._shard(
             nb, contrib, (ref_q, ref_t, flat, obs_scale, pairs), (points, neighbors, desc),
             geom_batched)
         return self._reduce(nb, _opt._hb_rig_batch(camera, params, extr_q, extr_t, q, t, pts, nbr,
                                                    d, f, layout, s, contrib, radius,
-                                                   optimize_intrinsics, dynamic_scale, pr))
+                                                   optimize_intrinsics, dynamic_scale, pr,
+                                                   timings=timings))
 
     def hb_depth_batch(self, camera, params, pose_q, pose_t, points, flat, layout, obs_scale,
                        contrib, optimize_intrinsics: bool, pairs=None,
-                       geom_batched: bool = False):
+                       geom_batched: bool = False, timings=None):
         nb = pose_q.shape[0]
         contrib, (q, t, f, s, pr), (pts,) = self._shard(
             nb, contrib, (pose_q, pose_t, flat, obs_scale, pairs), (points,), geom_batched)
         return self._reduce(nb, _opt._hb_depth_batch(camera, params, q, t, pts, f, layout, s,
-                                                     contrib, optimize_intrinsics, pr))
+                                                     contrib, optimize_intrinsics, pr,
+                                                     timings=timings))

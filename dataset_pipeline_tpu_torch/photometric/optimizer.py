@@ -61,7 +61,7 @@ from dataset_pipeline_tpu_torch.ops.robust import (
 from dataset_pipeline_tpu_torch.ops.splat import render_splats_depth
 from dataset_pipeline_tpu_torch.photometric.obs_cache import ObservationsCache
 from dataset_pipeline_tpu_torch.photometric.problem import PhotoProblem
-from dataset_pipeline_tpu_torch.utils.timing import stage
+from dataset_pipeline_tpu_torch.utils.timing import count, span, stage
 
 _INVALID_INTENSITY = 3.0e8  # neighbor-validity sentinel, exact in float32
 _JVP_ELEMENTS = 1 << 25  # (tangent, image, point) triples per vmapped jvp pass
@@ -374,58 +374,78 @@ def _geom_fn(camera, points, radius, dynamic_scale: bool, pose_of):
     return geom
 
 
+def _hb_spans(timings, device):
+    """The child spans of ``hb_accumulate`` in the ``_hb_*`` functions:
+    geometry (host seconds too), B3's sample, residuals and Gram products
+    (host seconds too). No-ops with ``timings=None``."""
+    return (lambda: span(timings, "hb_accumulate.geometry", device, host=True),
+            lambda: span(timings, "hb_accumulate.sample", device),
+            lambda: span(timings, "hb_accumulate.gram", device, host=True))
+
+
 def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, layout,
               obs_scale, contrib, radius, optimize_intrinsics: bool, dynamic_scale: bool,
-              pairs=None):
+              pairs=None, *, timings=None):
     """Per-image H (nb,V,V), b (nb,V) and the chunk's summed cost/count on
     one level. Variable layout of a block: [P intrinsics | 6 pose].
 
     One sample with analytic derivatives per observation (dI/dpix, dI/dscale)
     chained with forward-mode Jacobians of the gather-free projection and
     footprint math: each image's pixel depends only on its own pose, so one
-    shared 6-vector tangent gives every image's pose Jacobian at once."""
-    pose0 = _batch_pose(pose_q, pose_t)
-    geom = _geom_fn(camera, points, radius, dynamic_scale,
-                    lambda eps: SE3.exp(eps).compose(pose0))
-    eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
-    pix, _ = geom(eps0, params)
-    _, valid = _project_full(camera, params, pose0.apply(points))
-    inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
-                                                obs_scale.contiguous(), with_derivs=True,
-                                                pairs=pairs)
-    P = params.shape[0]
-    J = _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
-                          _basis(P, 6, optimize_intrinsics, eps0.device),
-                          _intensity_chain(dpx, dpy, dvds, dynamic_scale),
-                          pix.shape[0] * pix.shape[1])  # (nb, M, V)
-    return _gram_assemble(J, inten, valid & okS, neighbors, desc, contrib)
+    shared 6-vector tangent gives every image's pose Jacobian at once.
+    ``timings``, if given, collects the child spans of ``hb_accumulate``."""
+    geometry, sample, gram = _hb_spans(timings, points.device)
+    with geometry():
+        pose0 = _batch_pose(pose_q, pose_t)
+        geom = _geom_fn(camera, points, radius, dynamic_scale,
+                        lambda eps: SE3.exp(eps).compose(pose0))
+        eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
+        pix, _ = geom(eps0, params)
+        _, valid = _project_full(camera, params, pose0.apply(points))
+    with sample():
+        inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
+                                                    obs_scale.contiguous(), with_derivs=True,
+                                                    pairs=pairs)
+    with geometry():
+        P = params.shape[0]
+        J = _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
+                              _basis(P, 6, optimize_intrinsics, eps0.device),
+                              _intensity_chain(dpx, dpy, dvds, dynamic_scale),
+                              pix.shape[0] * pix.shape[1])  # (nb, M, V)
+    with gram():
+        return _gram_assemble(J, inten, valid & okS, neighbors, desc, contrib)
 
 
 def _hb_rig_batch(camera, params, extr_q, extr_t, ref_q, ref_t, points, neighbors, desc, flat,
                   layout, obs_scale, contrib, radius, optimize_intrinsics: bool,
-                  dynamic_scale: bool, pairs=None):
+                  dynamic_scale: bool, pairs=None, *, timings=None):
     """A chunk of rig-dependent images: pose = image_T_rig . reference pose,
     the extrinsics (4,)/(3,) shared, the reference poses (nb,4)/(nb,3) per
     image. Per-image H, b over [P intrinsics | 6 extrinsics | 6 reference
-    pose], and the summed cost/count."""
-    extr0 = SE3(extr_q, extr_t)
-    ref0 = _batch_pose(ref_q, ref_t)
-    geom = _geom_fn(camera, points, radius, dynamic_scale,
-                    lambda eps_e, eps_r: SE3.exp(eps_e).compose(extr0).compose(
-                        SE3.exp(eps_r).compose(ref0)))
-    z6 = torch.zeros(6, dtype=torch.float32, device=points.device)
-    pix, _ = geom(z6, z6, params)
-    pose0 = SE3.exp(z6).compose(extr0).compose(SE3.exp(z6).compose(ref0))
-    _, valid = _project_full(camera, params, pose0.apply(points))
-    inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
-                                                obs_scale.contiguous(), with_derivs=True,
-                                                pairs=pairs)
-    P = params.shape[0]
-    J = _forward_jacobian(geom, (z6, z6, params), lambda t: (t[P:P + 6], t[P + 6:], t[:P]),
-                          _basis(P, 12, optimize_intrinsics, z6.device),
-                          _intensity_chain(dpx, dpy, dvds, dynamic_scale),
-                          pix.shape[0] * pix.shape[1])
-    return _gram_assemble(J, inten, valid & okS, neighbors, desc, contrib)
+    pose], and the summed cost/count; ``timings`` as in ``_hb_batch``."""
+    geometry, sample, gram = _hb_spans(timings, points.device)
+    with geometry():
+        extr0 = SE3(extr_q, extr_t)
+        ref0 = _batch_pose(ref_q, ref_t)
+        geom = _geom_fn(camera, points, radius, dynamic_scale,
+                        lambda eps_e, eps_r: SE3.exp(eps_e).compose(extr0).compose(
+                            SE3.exp(eps_r).compose(ref0)))
+        z6 = torch.zeros(6, dtype=torch.float32, device=points.device)
+        pix, _ = geom(z6, z6, params)
+        pose0 = SE3.exp(z6).compose(extr0).compose(SE3.exp(z6).compose(ref0))
+        _, valid = _project_full(camera, params, pose0.apply(points))
+    with sample():
+        inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
+                                                    obs_scale.contiguous(), with_derivs=True,
+                                                    pairs=pairs)
+    with geometry():
+        P = params.shape[0]
+        J = _forward_jacobian(geom, (z6, z6, params), lambda t: (t[P:P + 6], t[P + 6:], t[:P]),
+                              _basis(P, 12, optimize_intrinsics, z6.device),
+                              _intensity_chain(dpx, dpy, dvds, dynamic_scale),
+                              pix.shape[0] * pix.shape[1])
+    with gram():
+        return _gram_assemble(J, inten, valid & okS, neighbors, desc, contrib)
 
 
 def _inverse_depths(D, z):
@@ -437,11 +457,13 @@ def _inverse_depths(D, z):
 
 
 def _hb_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_scale, contrib,
-                    optimize_intrinsics: bool, pairs=None):
+                    optimize_intrinsics: bool, pairs=None, *, timings=None):
     """H, b for inverse-depth residuals r = 1/D(pix) - 1/z against a fixed
     depth-map pyramid (``flat``: the chunk's depth maps, ``pairs`` their
     row-paired copy on the card), Tukey-weighted. Per-image H (nb,V,V), b
-    (nb,V) over [P intrinsics | 6 pose], and the summed cost/count."""
+    (nb,V) over [P intrinsics | 6 pose], and the summed cost/count;
+    ``timings`` as in ``_hb_batch``."""
+    geometry, sample, gram = _hb_spans(timings, points.device)
     pose0 = _batch_pose(pose_q, pose_t)
 
     def geom(eps, prm):
@@ -449,39 +471,44 @@ def _hb_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_sc
         pix, _ = cm.project(camera.with_params(prm), p_cam)
         return pix, p_cam[..., 2]
 
-    eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
-    pix, z = geom(eps0, params)
-    _, valid = cm.project(camera.with_params(params), pose0.apply(points))
-    D, dDx, dDy, _, okD = pyramid_sample(flat, layout, pix.contiguous(), obs_scale.contiguous(),
-                                         with_derivs=True, pairs=pairs)
-    inv_D, inv_z, safe_z = _inverse_depths(D, z)
-    r0 = inv_D - inv_z
-    rho = tukey_rho(r0, DEFAULT_DEPTH_TUKEY)
-    w = tukey_weight(r0, DEFAULT_DEPTH_TUKEY)
-    ok = valid & okD & (D > 0) & contrib
-    wfull = torch.where(ok, w, torch.zeros_like(w))
+    with geometry():
+        eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
+        pix, z = geom(eps0, params)
+        _, valid = cm.project(camera.with_params(params), pose0.apply(points))
+    with sample():
+        D, dDx, dDy, _, okD = pyramid_sample(flat, layout, pix.contiguous(),
+                                             obs_scale.contiguous(), with_derivs=True, pairs=pairs)
+    with gram():
+        inv_D, inv_z, safe_z = _inverse_depths(D, z)
+        r0 = inv_D - inv_z
+        rho = tukey_rho(r0, DEFAULT_DEPTH_TUKEY)
+        w = tukey_weight(r0, DEFAULT_DEPTH_TUKEY)
+        ok = valid & okD & (D > 0) & contrib
+        wfull = torch.where(ok, w, torch.zeros_like(w))
 
-    # dr/dstate = -(1/D^2) dD/dpix . dpix/dstate + (1/z^2) dz/dstate
-    dD_coef = -torch.where(D > 0, 1.0 / torch.clamp(D * D, min=1e-18), torch.zeros_like(D))
-    dz_coef = torch.where(z != 0, 1.0 / (safe_z * safe_z), torch.zeros_like(z))
+        # dr/dstate = -(1/D^2) dD/dpix . dpix/dstate + (1/z^2) dz/dstate
+        dD_coef = -torch.where(D > 0, 1.0 / torch.clamp(D * D, min=1e-18), torch.zeros_like(D))
+        dz_coef = torch.where(z != 0, 1.0 / (safe_z * safe_z), torch.zeros_like(z))
 
     def combine(dout):
         dpix, dz = dout
         return dD_coef * (dDx * dpix[..., 0] + dDy * dpix[..., 1]) + dz_coef * dz
 
-    P = params.shape[0]
-    rows = _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
-                             _basis(P, 6, optimize_intrinsics, eps0.device), combine,
-                             pix.shape[0] * pix.shape[1])
-    # invalid points carry zero weight but may hold non-finite J entries
-    rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
-    sw = torch.sqrt(wfull)
-    rows_w = rows * sw[..., None]
-    r_w = torch.where(ok, r0, torch.zeros_like(r0)) * sw
-    H = _gram(rows_w, rows_w)
-    b = _gram(rows_w, r_w[..., None])[..., 0]
-    cost = torch.sum(torch.where(ok, rho, torch.zeros_like(rho)))
-    return H, b, cost, torch.sum(ok)
+    with geometry():
+        P = params.shape[0]
+        rows = _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
+                                 _basis(P, 6, optimize_intrinsics, eps0.device), combine,
+                                 pix.shape[0] * pix.shape[1])
+    with gram():
+        # invalid points carry zero weight but may hold non-finite J entries
+        rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+        sw = torch.sqrt(wfull)
+        rows_w = rows * sw[..., None]
+        r_w = torch.where(ok, r0, torch.zeros_like(r0)) * sw
+        H = _gram(rows_w, rows_w)
+        b = _gram(rows_w, r_w[..., None])[..., 0]
+        cost = torch.sum(torch.where(ok, rho, torch.zeros_like(rho)))
+        return H, b, cost, torch.sum(ok)
 
 
 def _cost_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_scale, contrib,
@@ -1026,11 +1053,13 @@ class PhotometricOptimizer:
     def _lm_accumulate(self, vis):
         """Every (chunk, level, type) H,b accumulation, assembled into the big
         float64 system on the host, and the weighted-mean entry cost (the
-        quantity ``_total_cost`` computes, from the same passes)."""
+        quantity ``_total_cost`` computes, from the same passes). With
+        ``timings``, the child spans of ``hb_accumulate`` and its counts:
+        ``hb_accumulate.rows``, the geometry rows computed (images x points
+        of every call), and ``hb_accumulate.residuals``, those that became
+        residuals."""
+        timings = self.timings
         offsets_int, offsets_rig, offsets_pose, V = self._var_layout()
-        H = np.zeros((V, V), np.float64)
-        bb = np.zeros(V, np.float64)
-
         pend = []
         for gi, g in enumerate(self.p.groups):
             P = int(g.camera.params.shape[0])
@@ -1055,24 +1084,34 @@ class PhotometricOptimizer:
                                 extr.t[g.rig_cam_index], ref_g.poses.q[slots_dev],
                                 ref_g.poses.t[slots_dev], points, neighbors, desc, b.flat,
                                 b.layout, sc, m, level.radius, self.optimize_intrinsics,
-                                self.scale_jacobian, b.pairs, geom_batched=batched)
+                                self.scale_jacobian, b.pairs, geom_batched=batched, timings=timings)
                             meta = dict(kind="rig", slots=slots)
                         else:
                             out = self._kernels.hb_batch(
                                 g.camera, g.camera.params, q, t, points, neighbors, desc, b.flat,
                                 b.layout, sc, m, level.radius, self.optimize_intrinsics,
-                                self.scale_jacobian, b.pairs, geom_batched=batched)
+                                self.scale_jacobian, b.pairs, geom_batched=batched, timings=timings)
                             meta = dict(kind="plain")
                         meta.update(gi=gi, ti=ti, w=w_t, batch=b, nint=nint, P=P)
                         pend.append((meta, out))
+                        count(timings, "hb_accumulate.rows", b.nb * points.shape[-2])
                     if self._depth_active(g):
                         out = self._kernels.hb_depth_batch(
                             g.camera, g.camera.params, q, t, points, b.depth_flat, b.layout, sc,
-                            mask, self.optimize_intrinsics, b.depth_pairs, geom_batched=batched)
+                            mask, self.optimize_intrinsics, b.depth_pairs, geom_batched=batched,
+                            timings=timings)
                         pend.append((dict(kind="plain", gi=gi, ti="depth", w=self.depth_weight,
                                           batch=b, nint=nint, P=P), out))
+                        count(timings, "hb_accumulate.rows", b.nb * points.shape[-2])
 
-        # one transfer, then assemble the big system in numpy
+        with span(timings, "hb_accumulate.assemble", self.device):
+            return self._assemble(pend, offsets_int, offsets_rig, offsets_pose, V)
+
+    def _assemble(self, pend, offsets_int, offsets_rig, offsets_pose, V):
+        """The big float64 system and the entry cost from the pending
+        accumulations of ``_lm_accumulate``: one transfer, then numpy."""
+        H = np.zeros((V, V), np.float64)
+        bb = np.zeros(V, np.float64)
         flat = torch.cat([torch.cat([Hc.reshape(-1).double(), bc.reshape(-1).double(),
                                      c.double()[None], n.double()[None]])
                           for _, (Hc, bc, c, n) in pend]).cpu().numpy() if pend else None
@@ -1106,6 +1145,7 @@ class PhotometricOptimizer:
                         H[sa, sb] += w_t * Hc[j][a0:a0 + la, b0:b0 + lb]
             s_, n_ = sums.get(meta["ti"], (0.0, 0))
             sums[meta["ti"]] = (s_ + float(c), n_ + int(n))
+        count(self.timings, "hb_accumulate.residuals", sum(n_ for _, n_ in sums.values()))
         initial = sum(w * sums.get(ti, (0.0, 0))[0] / max(sums.get(ti, (0.0, 0))[1], 1)
                       for ti, w in enumerate(self._residual_weights()))
         if sums.get("depth", (0.0, 0))[1] > 0:
@@ -1133,7 +1173,8 @@ class PhotometricOptimizer:
 
     def _lm_step(self, vis):
         """One full LM step (accumulate + damped ladder)."""
-        H, bb, initial, offsets = self._lm_accumulate(vis)
+        with self._stage("hb_accumulate"):
+            H, bb, initial, offsets = self._lm_accumulate(vis)
         return self._lm_solve_apply(H, bb, initial, offsets, vis)
 
     # -- numerical optimum check ---------------------------------------------

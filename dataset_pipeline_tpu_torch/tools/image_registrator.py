@@ -12,7 +12,9 @@ neighbours), and runs the coarse-to-fine photometric optimizer, exporting a
 COLMAP state dir ``scale_<f>_state`` with a ``metadata.txt`` parameter dump
 (and ``rigs.json``) after every completed image scale, and ``timing.json`` at
 the end (each scale's optimisation is traced with ``torch.profiler`` into
-``$DPT_TRACE_DIR`` when that is set). ``--cache_observations`` compacts each
+``$DPT_TRACE_DIR`` when that is set, the optimizer's stages and the spans
+inside its H,b accumulation timed and named in the trace).
+``--cache_observations`` compacts each
 image's candidate points after the first scale (kept beside the cloud cache
 when there is one);
 ``--write_debug_point_clouds`` writes ``initial_point_cloud.ply`` coloured
@@ -379,6 +381,8 @@ def main(argv=None, timings: dict | None = None, stats: dict | None = None) -> i
     if staged and writes:
         mesh.barrier()
     global_count = problem.scale_count
+    if timings is None and os.environ.get("DPT_TRACE_DIR"):
+        timings = {}  # so that the trace holds the optimizer's stages and spans
     opt = make_optimizer(problem, args, params, timings, mesh)
     os.makedirs(args.output_folder_path, exist_ok=True)
 

@@ -39,7 +39,7 @@ from dataset_pipeline_tpu_torch.ops import pyramid_sample as ps
 from dataset_pipeline_tpu_torch.photometric import optimizer as po
 from dataset_pipeline_tpu_torch.tools import image_registrator as reg
 from dataset_pipeline_tpu_torch.utils import synthetic
-from dataset_pipeline_tpu_torch.utils.timing import StageTimer
+from dataset_pipeline_tpu_torch.utils.timing import StageTimer, stages_text
 
 ORDER = ("base", "plain_sampler", "single_gram", "single_gram", "plain_sampler", "base")
 PROFILE_ITERATIONS = 2
@@ -162,7 +162,7 @@ def main(argv=None) -> int:
         result["runs"].append(dict(variant=name, **r))
         print(f"{name}: {r['seconds']:.3f} s for {r['iterations']} iterations "
               f"({r['s_per_iteration']:.3f} s/iteration); optimum {r['optimum_cost']:.6f}; "
-              f"stages " + ", ".join(f"{k} {v:.3f}" for k, v in r["stages"].items()))
+              "stages " + stages_text(r["stages"]))
     prof = profile_base(problem, init, args, params, device, PROFILE_ITERATIONS)
     print(prof.pop("table"))
     result["profile"] = prof

@@ -1,12 +1,11 @@
-"""Stage timing and device tracing.
+"""Device tracing.
 
-Port of ``dataset_pipeline_tpu/utils/profiling.py``. ``GLOBAL_TIMER`` is a
-``StageTimer`` (``utils/timing.py``) on the host clock for callers that want
-one timer per process; the port's tools keep a timer of their own per run.
-``device_trace`` records a ``torch.profiler`` trace (CPU and, where there is
-a card, CUDA activity) of the block and writes it as a Chrome trace
-(``chrome://tracing``, Perfetto) into ``trace_dir`` or ``$DPT_TRACE_DIR``;
-with neither it costs nothing.
+Port of ``dataset_pipeline_tpu/utils/profiling.py``; stage timing is in
+``utils/timing.py``, whose stages and spans are ``record_function`` ranges
+in the trace. ``device_trace`` records a ``torch.profiler`` trace (CPU
+and, where there is a card, CUDA activity) of the block and writes it as a
+Chrome trace (``chrome://tracing``, Perfetto) into ``trace_dir`` or
+``$DPT_TRACE_DIR``; with neither it costs nothing.
 """
 
 from __future__ import annotations
@@ -17,10 +16,6 @@ import os
 from typing import Optional
 
 import torch
-
-from dataset_pipeline_tpu_torch.utils.timing import StageTimer
-
-GLOBAL_TIMER = StageTimer(torch.device("cpu"))
 
 _TRACE_IDS = itertools.count()
 

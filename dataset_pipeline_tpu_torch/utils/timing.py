@@ -1,33 +1,107 @@
 """Per-stage wall-clock accounting for the tools and the engines, and the
-timers of the measurement tools (median by CUDA events, repeat slope)."""
+timers of the measurement tools (median by CUDA events, repeat slope).
+
+A ``stage`` is synchronised and timed on the host clock; a ``span`` is a
+child of the innermost open stage of the same ``timings`` dict, timed by a
+pair of CUDA events on the card (the host clock on the CPU) without any
+synchronisation, its seconds added when that stage ends. Both open a
+``torch.profiler.record_function`` range of their name, so that under the
+profiler they sit on the clock of the device's activity. ``timings=None``
+costs nothing: no range, no event, no synchronisation."""
 
 from __future__ import annotations
 
 import json
+import threading
 import time
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+# per thread, the open stages, innermost last: (timings, pending event pairs)
+_OPEN = threading.local()
+
+
+def _open_stages() -> list:
+    if not hasattr(_OPEN, "stages"):
+        _OPEN.stages = []
+    return _OPEN.stages
+
 
 @contextmanager
 def stage(timings: dict | None, name: str, device: torch.device):
     """Add the seconds spent in the block to ``timings[name]``. On a CUDA
     device the block is bracketed by synchronizations, so queued kernels are
-    charged to the stage that launched them. ``timings=None`` costs nothing."""
+    charged to the stage that launched them; the event pairs of its child
+    spans are read after the closing one. ``timings=None`` costs nothing."""
     if timings is None:
         yield
         return
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
+    pending: list = []
+    stages = _open_stages()
+    with torch.profiler.record_function(name):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stages.append((timings, pending))
+        try:
+            yield
+        finally:
+            stages.pop()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            timings[name] = timings.get(name, 0.0) + time.perf_counter() - t0
+            for key, a, b in pending:
+                timings[key] = timings.get(key, 0.0) + a.elapsed_time(b) * 1e-3
+
+
+@contextmanager
+def span(timings: dict | None, name: str, device: torch.device, host: bool = False):
+    """Add the block's seconds to ``timings[name]``: on a CUDA device by a
+    pair of events on the current stream, read when the innermost open
+    ``stage`` of ``timings`` ends, on the CPU by the host clock. With
+    ``host``, ``timings[name + ".host"]`` gets the host's seconds in the
+    block, the time to enqueue its work. Never synchronises."""
+    if timings is None:
+        yield
+        return
+    cuda = device.type == "cuda"
+    if cuda:
+        owner = [p for t, p in _open_stages() if t is timings]
+        if not owner:
+            raise RuntimeError(f"span {name!r} on the card needs an open stage of its timings")
+    with torch.profiler.record_function(name):
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            a.record()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            seconds = time.perf_counter() - t0
+            if cuda:
+                b = torch.cuda.Event(enable_timing=True)
+                b.record()
+                owner[-1].append((name, a, b))
+            else:
+                timings[name] = timings.get(name, 0.0) + seconds
+            if host:
+                timings[name + ".host"] = timings.get(name + ".host", 0.0) + seconds
+
+
+def count(timings: dict | None, name: str, n: int) -> None:
+    """Add the integer ``n`` to ``timings[name]`` (nothing with ``None``)."""
+    if timings is not None:
+        timings[name] = timings.get(name, 0) + int(n)
+
+
+def stages_text(timings: dict) -> str:
+    """``name seconds, ...`` of a ``timings`` dict, its integer counts
+    after them as ``; counts: name n, ...``."""
+    text = ", ".join(f"{k} {v:.3f}" for k, v in timings.items() if not isinstance(v, int))
+    counts = ", ".join(f"{k} {v}" for k, v in timings.items() if isinstance(v, int))
+    return text + (f"; counts: {counts}" if counts else "")
 
 
 class StageTimer:

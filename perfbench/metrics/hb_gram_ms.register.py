@@ -1,0 +1,10 @@
+"""H,b's residuals and Gram products per LM iteration: the program's
+``hb_accumulate.gram`` span (residuals, Huber weights, neighbour gathers,
+split Gram products; CUDA events on the card) over the window's
+iterations."""
+
+from perfbench.metrics_common import stage_ms
+
+
+def read(record):
+    return stage_ms(record, ('hb_accumulate.gram',), 'iterations')

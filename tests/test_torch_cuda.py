@@ -1039,3 +1039,24 @@ def test_bench_section_on_the_card_matches_cpu(cuda_device, section):
         assert got[k] == want[k] > 0, k
     for k in keys[1]:
         np.testing.assert_allclose(got[k], want[k], rtol=BENCH_COST_RTOL, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_spans_time_by_events_read_when_their_stage_ends(cuda_device):
+    """``utils/timing.py``: a span on the card records a pair of CUDA events
+    and adds nothing until its stage's closing synchronisation; its host
+    seconds (the enqueue) are less than the events' time of queued work."""
+    from dataset_pipeline_tpu_torch.utils.timing import span, stage
+
+    x = torch.randn(2048, 2048, device=cuda_device)
+    t = {}
+    with stage(t, "outer", cuda_device):
+        with span(t, "outer.a", cuda_device, host=True):
+            for _ in range(20):
+                y = x @ x
+        with span(t, "outer.b", cuda_device):
+            y.sum()
+        assert "outer.a" not in t and "outer.b" not in t
+    assert set(t) == {"outer", "outer.a", "outer.a.host", "outer.b"}
+    assert 0 < t["outer.a"] and 0 < t["outer.b"] and t["outer.a"] + t["outer.b"] <= t["outer"]
+    assert t["outer.a.host"] < t["outer.a"]

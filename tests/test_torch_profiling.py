@@ -1,9 +1,10 @@
 """``utils/profiling.py``: ``device_trace`` writes a ``torch.profiler``
 Chrome trace when ``DPT_TRACE_DIR`` (or its argument) names a directory and
 nothing otherwise (the JAX package's ``device_trace`` contract, with
-``jax.profiler`` swapped for ``torch.profiler``); ``GLOBAL_TIMER`` keeps the
+``jax.profiler`` swapped for ``torch.profiler``); ``StageTimer`` keeps the
 JAX timer's stages and ``timing.json`` form; the registrator traces each
-scale's optimisation under ``DPT_TRACE_DIR``.
+scale's optimisation under ``DPT_TRACE_DIR``, its stages and H,b spans
+ranges in the trace.
 """
 
 import json
@@ -12,6 +13,7 @@ import os
 import torch
 
 from dataset_pipeline_tpu_torch.utils import profiling
+from dataset_pipeline_tpu_torch.utils.timing import StageTimer
 
 torch.set_num_threads(2)
 
@@ -48,7 +50,7 @@ def test_nothing_written_without_a_dir(tmp_path, monkeypatch):
 
 
 def test_global_timer_stages(tmp_path):
-    timer = profiling.StageTimer(torch.device("cpu"))
+    timer = StageTimer(torch.device("cpu"))
     with timer.stage("a"):
         _work()
     with timer.stage("a"):
@@ -56,7 +58,6 @@ def test_global_timer_stages(tmp_path):
     timer.dump_json(str(tmp_path / "timing.json"))
     got = json.load(open(tmp_path / "timing.json"))
     assert got["a"]["count"] == 2 and got["a"]["total_s"] >= 0
-    assert isinstance(profiling.GLOBAL_TIMER, profiling.StageTimer)
 
 
 def test_registrator_traces_each_scale(tmp_path, monkeypatch):
@@ -71,4 +72,8 @@ def test_registrator_traces_each_scale(tmp_path, monkeypatch):
         str(tmp_path / "out"), "--max_iterations", "1", "--device", "cpu"]) == 0
     scales = [k for k in json.load(open(tmp_path / "out" / "timing.json"))
               if k.startswith("optimize_scale_")]
-    assert len(os.listdir(tmp_path / "traces")) == len(scales) >= 1
+    files = os.listdir(tmp_path / "traces")
+    assert len(files) == len(scales) >= 1
+    names = {ev.get("name") for ev in json.load(open(tmp_path / "traces" / files[0]))["traceEvents"]}
+    assert {"hb_accumulate", "hb_accumulate.geometry", "hb_accumulate.sample",
+            "hb_accumulate.gram", "hb_accumulate.assemble", "lm_ladder"} <= names
