@@ -176,7 +176,8 @@ import time
 import numpy as np
 
 ICP_KERNELS = ("gn_fused", "gn_fused_cost_batch", "moment_gram")
-REG_KERNELS = ("pyramid_sample_derivs", "pyramid_sample_value", "pyramid_pairs")
+REG_KERNELS = ("pyramid_sample_derivs", "pyramid_sample_value", "pyramid_pairs", "hb_geometry_project",
+               "hb_geometry_jacobian")
 BENCH_KERNELS = ("gn_fused", "gn_fused_cost_batch", "moment_gram", "gn_rows", "moment_gram48", "moment_gram_thirds",
                  "moment_gram_repeat", "hbm_read_sum")
 PROBE_KERNELS = ("take_along_lanes", "take_along_sublanes", "take_rows", "advanced_2d",
@@ -190,6 +191,10 @@ SMALL_SCENE_TOL = 1e-4  # .mlp entries, CUDA run vs CPU (plain) run
 # B3 at the registrator's shapes (bench.py bench_registrator_dslr)
 B3_IMAGES, B3_W, B3_H, B3_SCALES, B3_OBS = 8, 3072, 2048, 5, 1_600_000
 B3_VALUE_TOL, B3_DERIV_TOL = 1e-4, 1e-3  # abs, kernel vs plain where ok
+# the H,b geometry kernel vs its plain version on valid rows (tests/test_torch_cuda.py): pix within
+# HB_PIX_ULPS float32 ulps of the projection's rounding, J within HB_J_RTOL of the entry plus a
+# thousandth of its column's largest
+HB_PIX_ULPS, HB_J_RTOL = 8, 1e-3
 # registrator scenes: the CPU parity test's tolerances (test_torch_image_registrator.py)
 REG_Q_TOL, REG_T_TOL, REG_PARAM_TOL, REG_COST_RTOL = 5e-7, 5e-7, 1e-3, 1e-4
 REG_MIN_MOTION = 20  # each scale run moves every pose by >= 20x REG_Q_TOL / REG_T_TOL
@@ -1548,8 +1553,10 @@ def check_b3_at_captured(torch, tps, cap: dict, label: str, flat_sampler=None):
 def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic, cio,
                          quat_to_matrix_np, root: str):
     """The DSLR configuration through the CLI at full resolution. The inputs
-    of the run's first derivs-mode B3 launch are kept (on the host, so that
-    the peak device memory is the run's own) and returned."""
+    of the run's first derivs-mode B3 launch and of its first H,b geometry
+    kernel launch in ``jacobian`` mode are kept (the large ones on the host,
+    so that the peak device memory is the run's own) and returned. Every
+    geometry row of the run is the kernel's (the scene's camera is PINHOLE)."""
     from dataset_pipeline_tpu_torch.utils.timing import stages_text
 
     t0 = time.perf_counter()
@@ -1562,17 +1569,25 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
     before = pose_errors(os.path.join(root, "state"), tq, tt, cio, quat_to_matrix_np)
     out = os.path.join(root, "out")
     timings, stats = {}, {}
-    captured = {}
-    sample = optimizer.pyramid_sample
+    captured, geometry = {}, {}
+    sample, jacobian = optimizer.pyramid_sample, optimizer.hb_geometry.jacobian
 
     def keep_first(flat, layout, pix, scale, with_derivs=True, **kw):
         if with_derivs and not captured:
             captured.update(flat=flat.cpu(), layout=layout, pix=pix.cpu(), scale=scale.cpu())
         return sample(flat, layout, pix, scale, with_derivs, **kw)
 
+    def keep_geometry(camera, params, q, t, points, radius, dpx, dpy, dvds, oi, ds):
+        if not geometry:
+            geometry.update(camera=camera, params=params.clone(), q=q.clone(), t=t.clone(),
+                            points=points.cpu(), radius=radius, dpx=dpx.cpu(), dpy=dpy.cpu(),
+                            dvds=dvds.cpu(), optimize_intrinsics=oi, dynamic_scale=ds)
+        return jacobian(camera, params, q, t, points, radius, dpx, dpy, dvds, oi, ds)
+
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     optimizer.pyramid_sample = keep_first  # for this run only
+    optimizer.hb_geometry.jacobian = keep_geometry
     t0 = time.perf_counter()
     try:
         rc = image_registrator.main(registrator_args(
@@ -1583,10 +1598,12 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
         torch.cuda.synchronize()
     finally:
         optimizer.pyramid_sample = sample
+        optimizer.hb_geometry.jacobian = jacobian
     wall = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] for k in REG_KERNELS}
     if rc != 0:
         fail(f"image_registrator returned {rc}")
+    rows, kernel_rows = (timings.get(f"hb_accumulate.{k}", 0) for k in ("rows", "geometry_kernel_rows"))
     after = pose_errors(os.path.join(out, "scale_1_state"), tq, tt, cio, quat_to_matrix_np)
     sc = stats["scales"][-1]
     tj = json.load(open(os.path.join(out, "timing.json")))
@@ -1600,7 +1617,10 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
           f"iteration {obs}; {opt_s / sc['iterations']:.3f} s/iteration, "
           f"{sum(obs) / opt_s:.4g} observations/s; costs {sc['iteration_costs']} -> optimum "
           f"{sc['optimum_cost']:.6f}; pose error (mm at 5 m) mean {1e3 * before.mean():.3f} -> "
-          f"{1e3 * after.mean():.3f}; launches {launches}")
+          f"{1e3 * after.mean():.3f}; launches {launches}; geometry rows by the kernel "
+          f"{kernel_rows} of {rows}")
+    if not 0 < kernel_rows == rows:
+        fail(f"DSLR: the H,b geometry kernel computed {kernel_rows} of {rows} geometry rows")
     if sum(stats["levels"]) < DSLR_MIN_POINTS:
         fail(f"DSLR: {sum(stats['levels'])} points survive < {DSLR_MIN_POINTS}")
     if min(obs) < DSLR_MIN_OBS:
@@ -1614,7 +1634,83 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
             fail(f"the registrator's main path never launched kernel {k}")
     if not captured:
         fail("DSLR: no derivs-mode B3 launch to keep the inputs of")
-    return launches, captured, (tq, tt)
+    return launches, captured, (tq, tt), geometry
+
+
+def hb_pix_tolerance(torch, q, t, pts, f):
+    """Float32 rounding of the projection per row (as tests/test_torch_cuda.py
+    bounds it): the camera-frame point is good to a few ulps of the largest
+    coordinate that made it, and the pixel is f (p.xy / z): an error e in p
+    moves it by f e (1 + |p.xy / z|) / |z|."""
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+
+    p = SE3(q[:, None].double(), t[:, None].double()).apply(pts.double())
+    big = torch.maximum(pts.double().abs().amax(-1), t.double().abs().amax(-1)[:, None])
+    n = (p[..., :2] / p[..., 2:]).abs().amax(-1)
+    return (HB_PIX_ULPS * 2.0 ** -24 * float(f) * big * (1 + n) / p[..., 2].abs())[..., None]
+
+
+def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
+    """The H,b geometry kernel's two modes at ``cap``'s inputs against the
+    plain version (``torch.func.jvp`` under ``vmap``): valid equal, pix
+    within the projection's float32 rounding, J within HB_J_RTOL on valid
+    rows; each mode's CUDA-event times beside its bound in bytes (project:
+    12 B a point read, pix and valid 9 B a row written; jacobian: 12 B a
+    point, B3's derivatives 12 B a row (8 without the footprint row) read,
+    4 V B a row written), and the plain version's time."""
+    cam, params, q, t, r = cap["camera"], cap["params"], cap["q"], cap["t"], cap["radius"]
+    oi, ds = cap["optimize_intrinsics"], cap["dynamic_scale"]
+    pts = cap["points"].cuda()
+    dpx, dpy, dvds = (cap[k].cuda() for k in ("dpx", "dpy", "dvds"))
+    nb, M = dpx.shape
+    V = (params.shape[0] if oi else 0) + 6
+
+    def project():
+        return hg.project(cam, params, q, t, pts)
+
+    def jacobian():
+        return hg.jacobian(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
+
+    def plain():
+        pix, _ = optimizer._project_plain(cam, params, q, t, pts)
+        return pix, optimizer._jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
+
+    pix, valid = project()
+    J = jacobian()
+    if not (torch.equal(pix, project()[0]) and torch.equal(J, jacobian())):
+        fail(f"H,b geometry at {label}: two identical launches disagree")
+    pix_p, valid_p = optimizer._project_plain(cam, params, q, t, pts)
+    if not torch.equal(valid, valid_p):
+        fail(f"H,b geometry at {label}: valid differs from the plain version in "
+             f"{int((valid != valid_p).sum())} rows")
+    pix_err = ((pix.double() - pix_p.double()).abs() / hb_pix_tolerance(torch, q, t, pts, params[0]))
+    pix_err = float(pix_err[valid_p].max())
+    del pix_p
+    J_p = optimizer._jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
+    Jv, Jpv = J[valid_p].double(), J_p[valid_p].double()
+    del J_p
+    J_err = float(((Jv - Jpv).abs() / (HB_J_RTOL * (Jpv.abs() + 1e-3 * Jpv.abs().amax(0)))).max())
+    finite = bool(torch.isfinite(Jv).all())
+    del Jv, Jpv
+    rows = nb * M
+    point_rows = rows if pts.dim() == 3 else M
+    res = {"images": nb, "points": M, "rows": rows, "valid_rows": int(valid_p.sum()), "V": V,
+           "dynamic_scale": bool(ds), "optimize_intrinsics": bool(oi),
+           "pix_err_over_tolerance": pix_err, "J_err_over_tolerance": J_err, "library_ms": None}
+    torch.cuda.empty_cache()
+    res.update(kernel_ms(jacobian, torch), **bound(12 * point_rows + (8 + 4 * ds + 4 * V) * rows, 0))
+    res["project"] = {**kernel_ms(project, torch), **bound(12 * point_rows + 9 * rows, 0)}
+    res["plain_ms"] = cuda_ms(plain, torch, warmup=1, reps=3)  # both modes, as _hb_batch ran them
+    print(f"H,b geometry kernel at {label} ({nb} images x {M} points, V = {V}, footprint row "
+          f"{bool(ds)}): pix / tolerance max {pix_err:.3f}, J / tolerance max {J_err:.3f} on "
+          f"{res['valid_rows']} valid rows; project {res['project']['ms']:.4f} ms (one launch "
+          f"{res['project']['ms_one_launch']:.4f}, bound {res['project']['bound_ms']:.4f}), jacobian "
+          f"{res['ms']:.4f} ms (one launch {res['ms_one_launch']:.4f}, bound {res['bound_ms']:.4f}); "
+          f"the plain version {res['plain_ms']:.2f} ms for both")
+    if not (pix_err <= 1.0 and J_err <= 1.0 and finite):
+        fail(f"H,b geometry at {label}: the kernel is off the plain version (pix {pix_err:.3f}, J "
+             f"{J_err:.3f} of their tolerances, J finite {finite})")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -3679,9 +3775,13 @@ def main(argv=None) -> int:
         check_registrator_small(torch, image_registrator, synthetic.write_scene, cio,
                                 os.path.join(root, "small"))
         print(f"small registrator scene: {time.perf_counter() - t0:.1f} s")
-        reg, dslr_b3, truth = run_registrator_dslr(torch, kernels, image_registrator, optimizer,
-                                                   synthetic, cio, quat_to_matrix_np,
-                                                   os.path.join(root, "dslr"))
+        reg, dslr_b3, truth, dslr_geometry = run_registrator_dslr(
+            torch, kernels, image_registrator, optimizer, synthetic, cio, quat_to_matrix_np,
+            os.path.join(root, "dslr"))
+        torch.cuda.empty_cache()
+        hb_geom = check_hb_geometry(torch, optimizer.hb_geometry, optimizer, dslr_geometry,
+                                    "the DSLR run's first jacobian launch")
+        del dslr_geometry
         torch.cuda.empty_cache()
 
         # ground truth and rendering: no hand-written kernel on this path
@@ -3790,7 +3890,7 @@ def main(argv=None) -> int:
                                    "slice4_inputs": b3_slice4, "joint_ba_inputs": b3_slice5,
                                    "slice7_inputs": b3_slice7, "bench_inputs": b3_bench},
                 "gn_rows": b4a,
-                "hbm_read_sum": b5b, **variants, **probes}
+                "hbm_read_sum": b5b, **variants, **probes, "hb_geometry": hb_geom}
     report = []
     for kname, k in kernels.KERNELS.items():
         paths = {p: {c: counts[c] for c in k.counters if c in counts} for p, counts in by_path.items()}
@@ -3811,6 +3911,11 @@ def main(argv=None) -> int:
     pb = b3["pair_build"]
     next(r for r in report if r["name"] == "pyramid_sample")["excess_ms"] = (
         samples * (b3["derivs"]["ms"] - b3["derivs"]["bound_ms"]) + builds * (pb["ms"] - pb["bound_ms"]))
+    projects, jacobians = (sum(c.get(x, 0) for c in by_path.values())
+                           for x in ("hb_geometry_project", "hb_geometry_jacobian"))
+    hp = hb_geom["project"]
+    next(r for r in report if r["name"] == "hb_geometry")["excess_ms"] = (
+        projects * (hp["ms"] - hp["bound_ms"]) + jacobians * (hb_geom["ms"] - hb_geom["bound_ms"]))
     # which kernel a later change should take up first: those that lose to their
     # library call, then by the excess; a kernel already redesigned is not taken again
     def loses(r):

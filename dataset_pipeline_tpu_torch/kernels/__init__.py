@@ -35,6 +35,7 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _JAX = "dataset_pipeline_tpu/ops/pallas_gn.py"
 _PROBE = "experiments/gather_probe"
 
@@ -42,7 +43,7 @@ _PROBE = "experiments/gather_probe"
 class Kernel(NamedTuple):
     """One hand-written kernel: its C entry point with the argument types
     (pointers and the stream as void*, ints as int, 64-bit sizes as long
-    long), its source under ``csrc/``, the TPU kernel it replaces
+    long, floats as float), its source under ``csrc/``, the TPU kernel it replaces
     (file:line) and the launch counters of its wrapper. ``more`` maps the
     kernel's further C entry points (a second launch mode, the grid query of
     a persistent kernel) to their argument types."""
@@ -108,6 +109,12 @@ KERNELS = {
         "dpt_row_extract_packed", [_P] * 10 + [_L, _I, _I, _I, _P],
         "row_extract_packed.cu", f"{_PROBE}2.py:251", ("row_extract_packed",),
         {"dpt_row_extract_packed_grid": []}),
+    "hb_geometry": Kernel(  # ops/hb_geometry.py:project and jacobian
+        "dpt_hb_geometry_project", [_P, _P, _P, _I, _P, _F, _P, _I, _L, _I, _P, _P, _P],
+        "hb_geometry.cu", "dataset_pipeline_tpu/photometric/optimizer.py:797",
+        ("hb_geometry_project", "hb_geometry_jacobian"),
+        {"dpt_hb_geometry_jacobian": [_P, _P, _P, _I, _P, _I, _L, _I, _P, _P, _P, _F, _I, _I, _P,
+                                      _P]}),
 }
 
 # kernel launches per wrapper variant (never the plain versions): a run

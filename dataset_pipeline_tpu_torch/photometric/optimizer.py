@@ -15,7 +15,8 @@ the observations cache (per-image compacted views of the point levels).
 - **Jacobians**: one trilinear sample with analytic derivatives per
   observation (``ops/pyramid_sample.py``, the CUDA kernel on the card) chained
   with forward-mode derivatives (``torch.func.jvp`` over the variables) of the
-  gather-free projection and footprint-scale math.
+  gather-free projection and footprint-scale math; ``_hb_batch``'s geometry
+  runs in one CUDA kernel on the card (``ops/hb_geometry.py``).
 - **LM**: H diagonal *= (1+lambda), accept if the cost decreases with frozen
   visibility, lambda halve/double, 10 tries, force-apply the last try.
   Variables: the intrinsics blocks first, then 6 dof per rig camera other
@@ -43,6 +44,7 @@ import torch
 
 from dataset_pipeline_tpu_torch.models import cameras as cm
 from dataset_pipeline_tpu_torch.models.lie import SE3
+from dataset_pipeline_tpu_torch.ops import hb_geometry
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import (
     PyramidLayout,
     flatten_pyramid,
@@ -374,6 +376,34 @@ def _geom_fn(camera, points, radius, dynamic_scale: bool, pose_of):
     return geom
 
 
+def _project_plain(camera, params, pose_q, pose_t, points):
+    """``_hb_batch``'s (pix (nb,M,2), valid (nb,M)) off the card or for the
+    models ``csrc/hb_geometry.cu`` does not implement, and that kernel's
+    oracle: pix under ``SE3.exp(0).compose(pose)``, the pose at which
+    :func:`_jacobian_plain` differentiates, valid under the pose itself."""
+    pose0 = _batch_pose(pose_q, pose_t)
+    eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
+    pix, _ = _project_full(camera, params, SE3.exp(eps0).compose(pose0).apply(points))
+    _, valid = _project_full(camera, params, pose0.apply(points))
+    return pix, valid
+
+
+def _jacobian_plain(camera, params, pose_q, pose_t, points, radius, dpx, dpy, dvds,
+                    optimize_intrinsics: bool, dynamic_scale: bool):
+    """J (nb,M,V) of :func:`_project_plain`'s rows by ``torch.func.jvp``
+    under ``vmap``: each image's pixel depends only on its own pose, so one
+    shared 6-vector tangent gives every image's pose Jacobian at once."""
+    pose0 = _batch_pose(pose_q, pose_t)
+    geom = _geom_fn(camera, points, radius, dynamic_scale,
+                    lambda eps: SE3.exp(eps).compose(pose0))
+    eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
+    P = params.shape[0]
+    return _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
+                             _basis(P, 6, optimize_intrinsics, eps0.device),
+                             _intensity_chain(dpx, dpy, dvds, dynamic_scale),
+                             dpx.shape[0] * dpx.shape[1])
+
+
 def _hb_spans(timings, device):
     """The child spans of ``hb_accumulate`` in the ``_hb_*`` functions:
     geometry (host seconds too), B3's sample, residuals and Gram products
@@ -391,27 +421,26 @@ def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, lay
 
     One sample with analytic derivatives per observation (dI/dpix, dI/dscale)
     chained with forward-mode Jacobians of the gather-free projection and
-    footprint math: each image's pixel depends only on its own pose, so one
-    shared 6-vector tangent gives every image's pose Jacobian at once.
-    ``timings``, if given, collects the child spans of ``hb_accumulate``."""
+    footprint math: the kernel ``csrc/hb_geometry.cu`` (``ops/hb_geometry.py``)
+    on the card for the models it implements, else ``torch.func.jvp``.
+    ``timings``, if given, collects the child spans of ``hb_accumulate`` and
+    counts ``hb_accumulate.geometry_kernel_rows``, the rows whose geometry
+    the kernel computed."""
     geometry, sample, gram = _hb_spans(timings, points.device)
+    kernel = hb_geometry.uses_kernel(camera, points)
+    project, jacobian = ((hb_geometry.project, hb_geometry.jacobian) if kernel
+                         else (_project_plain, _jacobian_plain))
     with geometry():
-        pose0 = _batch_pose(pose_q, pose_t)
-        geom = _geom_fn(camera, points, radius, dynamic_scale,
-                        lambda eps: SE3.exp(eps).compose(pose0))
-        eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
-        pix, _ = geom(eps0, params)
-        _, valid = _project_full(camera, params, pose0.apply(points))
+        pix, valid = project(camera, params, pose_q, pose_t, points)
     with sample():
         inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
                                                     obs_scale.contiguous(), with_derivs=True,
                                                     pairs=pairs)
     with geometry():
-        P = params.shape[0]
-        J = _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
-                              _basis(P, 6, optimize_intrinsics, eps0.device),
-                              _intensity_chain(dpx, dpy, dvds, dynamic_scale),
-                              pix.shape[0] * pix.shape[1])  # (nb, M, V)
+        J = jacobian(camera, params, pose_q, pose_t, points, radius, dpx, dpy, dvds,
+                     optimize_intrinsics, dynamic_scale)  # (nb, M, V)
+    if kernel:
+        count(timings, "hb_accumulate.geometry_kernel_rows", pix.shape[0] * pix.shape[1])
     with gram():
         return _gram_assemble(J, inten, valid & okS, neighbors, desc, contrib)
 

@@ -13,8 +13,8 @@
 // filled with NaN bytes so that a read of a slot no thread wrote shows; as on
 // the card, a launch with more than 48 KB of it fails (cudaGetLastError) unless
 // `cudaFuncSetAttribute` raised that kernel's limit, and above 227 KB always.
-// `float2` and `float4` are plain
-// structs of two and four floats. A warp is 32 consecutive threads with a barrier of
+// `float2`, `float3` and `float4` are plain
+// structs of two, three and four floats. A warp is 32 consecutive threads with a barrier of
 // its own: `__shfl_xor_sync`, `__shfl_sync`, `__ballot_sync` and
 // `__match_any_sync` are an exchange array between two waits on it, so every
 // lane of the warp must call them (the mask is not read), as `__syncwarp`,
@@ -39,11 +39,14 @@
 #include <vector>
 
 using std::isfinite;
+using std::isnan;
 using std::max;
 using std::min;
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 
 struct alignas(16) float4 {
   float x, y, z, w;
@@ -51,7 +54,11 @@ struct alignas(16) float4 {
 struct alignas(8) float2 {
   float x, y;
 };
+struct float3 {
+  float x, y, z;
+};
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
+inline float3 make_float3(float x, float y, float z) { return {x, y, z}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
 
 struct dim3 {

@@ -1060,3 +1060,162 @@ def test_spans_time_by_events_read_when_their_stage_ends(cuda_device):
     assert set(t) == {"outer", "outer.a", "outer.a.host", "outer.b"}
     assert 0 < t["outer.a"] and 0 < t["outer.b"] and t["outer.a"] + t["outer.b"] <= t["outer"]
     assert t["outer.a.host"] < t["outer.a"]
+
+
+# ---------------------------------------------------------------------------
+# The H,b geometry kernel (csrc/hb_geometry.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+HB_PARAMS = {"PINHOLE": [150.0, 156.0, 79.5, 59.5], "SIMPLE_PINHOLE": [150.0, 79.5, 59.5],
+             "OPENCV": [150.0, 156.0, 79.5, 59.5, 0.01, -0.002, 1e-4, -2e-4]}
+
+
+def _hb_scene(device, model, per_image, nb=3, M=6000, seed=0, hidden=True):
+    """A camera of 160x120 with a radius cutoff of 1 (``|p.xy / z|^2``), the
+    chunk's poses near the identity and points (M,3) or (nb,M,3) 2 to 5 from
+    the camera plane, in view; with ``hidden`` a sixth of them behind the
+    camera and a sixth spread beyond the cutoff."""
+    import dataclasses
+
+    from dataset_pipeline_tpu_torch.models import cameras as cm
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+
+    rng = np.random.RandomState(seed + 10 * per_image)
+    cam = cm.make_camera(model, 160, 120, HB_PARAMS[model], cutoff=False, device=device)
+    cam = dataclasses.replace(cam, radius_cutoff_sq=torch.tensor(1.0, device=device))
+    shape = (nb, M) if per_image else (M,)
+    z = rng.uniform(2.0, 5.0, shape)
+    n = rng.uniform(-0.5, 0.5, shape + (2,)) * np.array([1.0, 0.7])
+    if hidden:
+        z[..., : M // 6] = -z[..., : M // 6]
+        n[..., M // 6: M // 3, :] *= 4.0
+    pts = np.concatenate([n * np.abs(z)[..., None], z[..., None]], -1).astype(np.float32)
+    pose = SE3.exp(torch.from_numpy((0.02 * rng.randn(nb, 6)).astype(np.float32)))
+    derivs = [torch.from_numpy(rng.randn(nb, M).astype(np.float32)).to(device) for _ in range(3)]
+    return (cam, pose.q.to(device), pose.t.to(device), torch.from_numpy(pts).to(device), derivs)
+
+
+def _pix_tolerance(cam, q, t, pts):
+    """Float32 rounding of the projection, per row: the camera-frame point
+    is good to an ulp or two of the largest coordinate that made it, and the
+    pixel is f (p.xy / z): an error e in p moves it by f e (1 + |n|) / |z|."""
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+
+    p = SE3(q[:, None].double(), t[:, None].double()).apply(pts.double())
+    big = torch.maximum(pts.double().abs().amax(-1), t.double().abs().amax(-1)[:, None])
+    f = cam.params[0].double()
+    n = (p[..., :2] / p[..., 2:]).abs().amax(-1)
+    return (8 * 2.0 ** -24 * f * big * (1 + n) / p[..., 2].abs())[..., None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["PINHOLE", "SIMPLE_PINHOLE"])
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("dynamic_scale", [False, True])
+@pytest.mark.parametrize("optimize_intrinsics", [False, True])
+def test_hb_geometry_kernel_matches_plain(cuda_device, model, per_image, dynamic_scale,
+                                          optimize_intrinsics):
+    """``project``: valid equal, pix within float32 rounding of the
+    projection; ``jacobian``: J within 1e-3 of the jvp's on valid rows,
+    relative to the entry plus a thousandth of its column's largest (the
+    jvp's footprint tangent is a difference of nearly equal terms, good to
+    ~1e-4). One launch of each mode."""
+    from dataset_pipeline_tpu_torch.ops import hb_geometry as hg
+    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
+
+    cam, q, t, pts, (dpx, dpy, dvds) = _hb_scene(cuda_device, model, per_image)
+    assert hg.uses_kernel(cam, pts)
+    n0 = dict(gn.LAUNCHES)
+    pix, valid = hg.project(cam, cam.params, q, t, pts)
+    J = hg.jacobian(cam, cam.params, q, t, pts, 0.004, dpx, dpy, dvds, optimize_intrinsics,
+                    dynamic_scale)
+    assert gn.LAUNCHES["hb_geometry_project"] == n0["hb_geometry_project"] + 1
+    assert gn.LAUNCHES["hb_geometry_jacobian"] == n0["hb_geometry_jacobian"] + 1
+    pix_p, valid_p = tpo._project_plain(cam, cam.params, q, t, pts)
+    J_p = tpo._jacobian_plain(cam, cam.params, q, t, pts, 0.004, dpx, dpy, dvds,
+                              optimize_intrinsics, dynamic_scale)
+    assert gn.LAUNCHES == {**n0, "hb_geometry_project": n0["hb_geometry_project"] + 1,
+                           "hb_geometry_jacobian": n0["hb_geometry_jacobian"] + 1}
+    assert torch.equal(valid, valid_p)
+    M = pts.shape[-2]
+    assert 0.4 * M < int(valid_p.sum()) / q.shape[0] < 0.8 * M  # behind and beyond cut off
+    tol = _pix_tolerance(cam, q, t, pts)
+    assert bool(((pix.double() - pix_p.double()).abs() <= tol).all())
+    assert J.shape == J_p.shape == (q.shape[0], M, (cam.params.shape[0] if optimize_intrinsics
+                                                     else 0) + 6)
+    Jv, Jpv = J[valid_p].double(), J_p[valid_p].double()
+    assert bool(torch.isfinite(Jv).all())
+    scale = Jpv.abs() + 1e-3 * Jpv.abs().amax(0)
+    assert bool(((Jv - Jpv).abs() <= 1e-3 * scale).all()), float(((Jv - Jpv).abs() / scale).max())
+
+
+@pytest.mark.cuda
+def test_hb_geometry_kernel_reads_the_cutoff_on_the_card(cuda_device):
+    """The radius cutoff as a tensor on the card is read there, and gives
+    what the same number gives as a host scalar."""
+    import dataclasses
+
+    from dataset_pipeline_tpu_torch.ops import hb_geometry as hg
+
+    cam, q, t, pts, _ = _hb_scene(cuda_device, "PINHOLE", False)
+    host = dataclasses.replace(cam, radius_cutoff_sq=torch.tensor(1.0))
+    for a, b in zip(hg.project(cam, cam.params, q, t, pts),
+                    hg.project(host, cam.params, q, t, pts)):
+        assert torch.equal(a, b)
+
+
+def _hb_batch_inputs(device, model, per_image, seed=5):
+    """``_hb_batch``'s arguments for a chunk of 3 images of 160x120 (4
+    levels), K = 4 neighbours, the points of :func:`_hb_scene` in view."""
+    from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
+
+    cam, q, t, pts, _ = _hb_scene(device, model, per_image, nb=3, M=4000, seed=seed, hidden=False)
+    rng = np.random.RandomState(seed)
+    nb, M = q.shape[0], pts.shape[-2]
+    pyr = [torch.from_numpy((rng.rand(nb, 120, 160) * 255).astype(np.float32)).to(device)]
+    for _ in range(3):
+        h, w = pyr[-1].shape[1:]
+        pyr.append(pyr[-1].reshape(nb, h // 2, 2, w // 2, 2).mean((2, 4)))
+    flat, layout = tps.flatten_pyramid(pyr)
+    shape = (nb, M) if per_image else (M,)
+    nbr = torch.from_numpy(rng.randint(0, M, shape + (4,))).to(device)
+    desc = torch.from_numpy(rng.randn(*shape, 4).astype(np.float32)).to(device)
+    scale = torch.from_numpy(rng.uniform(0.1, 1.9, (nb, M)).astype(np.float32)).to(device)
+    contrib = torch.from_numpy(rng.rand(nb, M) < 0.9).to(device)
+    return (cam, cam.params, q, t, pts, nbr, desc, flat, layout, scale, contrib, 0.004)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["PINHOLE", "SIMPLE_PINHOLE", "OPENCV"])
+@pytest.mark.parametrize("per_image", [False, True])
+def test_hb_batch_on_the_card_matches_cpu(cuda_device, model, per_image):
+    """``_hb_batch`` (intrinsics and the footprint row optimised): equal
+    counts, H and b within 1e-4 of their largest entry, the cost 1e-4 (the
+    limits of the bench's photometric_hb test). The kernel models count one
+    launch of each mode and ``geometry_kernel_rows`` nb x M; OPENCV takes the
+    jvp on the card: no launch, no count."""
+    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
+    from dataset_pipeline_tpu_torch.utils.timing import stage
+
+    out, counts = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        args = _hb_batch_inputs(dev, model, per_image)
+        n0 = dict(gn.LAUNCHES)
+        t = {}
+        with stage(t, "hb_accumulate", dev):
+            res = tpo._hb_batch(*args, True, True, timings=t)
+            out[dev.type] = [x.double().cpu().numpy() for x in res]
+        counts[dev.type] = (t.get("hb_accumulate.geometry_kernel_rows"),
+                            {k: gn.LAUNCHES[k] - n0[k] for k in n0 if gn.LAUNCHES[k] != n0[k]})
+    nb, M = args[2].shape[0], args[4].shape[-2]
+    if model == "OPENCV":
+        assert counts["cuda"] == (None, {"pyramid_pairs": 1, "pyramid_sample_derivs": 1})
+    else:
+        assert counts["cuda"] == (nb * M, {"pyramid_pairs": 1, "pyramid_sample_derivs": 1,
+                                           "hb_geometry_project": 1, "hb_geometry_jacobian": 1})
+    assert counts["cpu"] == (None, {})
+    got, want = out["cuda"], out["cpu"]
+    assert int(got[3]) == int(want[3]) > nb * M // 2
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+    np.testing.assert_allclose(got[2], want[2], rtol=BENCH_COST_RTOL)

@@ -1,0 +1,103 @@
+"""The geometry dispatch of ``photometric/optimizer.py:_hb_batch`` on the
+CPU: CPU tensors take the plain version (``torch.func.jvp`` under ``vmap``)
+for every camera model, launch nothing and count no
+``hb_accumulate.geometry_kernel_rows``; the kernel (``ops/hb_geometry.py``)
+is chosen only for points on the card and the models it implements, and its
+wrappers refuse anything else. The kernel itself is held to the plain
+version on the card (``tests/test_torch_cuda.py``)."""
+
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from dataset_pipeline_tpu_torch import kernels
+from dataset_pipeline_tpu_torch.models import cameras as cm
+from dataset_pipeline_tpu_torch.models.lie import SE3
+from dataset_pipeline_tpu_torch.ops import hb_geometry as hg
+from dataset_pipeline_tpu_torch.ops import pyramid_sample as tps
+from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
+from dataset_pipeline_tpu_torch.utils.timing import stage
+
+torch.set_num_threads(2)
+
+PARAMS = {"PINHOLE": [150.0, 156.0, 79.5, 59.5], "SIMPLE_PINHOLE": [150.0, 79.5, 59.5],
+          "OPENCV": [150.0, 156.0, 79.5, 59.5, 0.01, -0.002, 1e-4, -2e-4]}
+
+
+def _batch_args(model, per_image, nb=2, M=500):
+    """``_hb_batch``'s arguments on the CPU: a 160x120 camera, 4 pyramid
+    levels, points (M,3) or (nb,M,3) about 3 in front of it, K = 4
+    neighbours."""
+    rng = np.random.RandomState(7)
+    cam = cm.make_camera(model, 160, 120, PARAMS[model], device="cpu")
+    shape = (nb, M) if per_image else (M,)
+    pts = torch.from_numpy((rng.randn(*shape, 3) * [0.5, 0.5, 1.0] + [0, 0, 3]).astype(np.float32))
+    pose = SE3.exp(torch.from_numpy((0.02 * rng.randn(nb, 6)).astype(np.float32)))
+    pyr = [torch.from_numpy((rng.rand(nb, 120, 160) * 255).astype(np.float32))]
+    for _ in range(3):
+        h, w = pyr[-1].shape[1:]
+        pyr.append(pyr[-1].reshape(nb, h // 2, 2, w // 2, 2).mean((2, 4)))
+    flat, layout = tps.flatten_pyramid(pyr)
+    nbr = torch.from_numpy(rng.randint(0, M, shape + (4,)))
+    desc = torch.from_numpy(rng.randn(*shape, 4).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(0.1, 1.9, (nb, M)).astype(np.float32))
+    contrib = torch.from_numpy(rng.rand(nb, M) < 0.9)
+    return (cam, cam.params, pose.q, pose.t, pts, nbr, desc, flat, layout, scale, contrib, 0.004)
+
+
+@pytest.mark.parametrize("model", sorted(PARAMS))
+@pytest.mark.parametrize("per_image", [False, True])
+def test_cpu_tensors_take_the_plain_version(model, per_image, monkeypatch):
+    """``_hb_batch`` on CPU tensors: the plain version gives the geometry,
+    once in each mode, the kernel's wrappers are never called, nothing is
+    launched and ``geometry_kernel_rows`` is not counted."""
+    calls = []
+
+    def spy(name):
+        fn = getattr(tpo, name)
+
+        def wrapped(*a):
+            calls.append(name)
+            return fn(*a)
+
+        monkeypatch.setattr(tpo, name, wrapped)
+
+    spy("_project_plain")
+    spy("_jacobian_plain")
+    for name in ("project", "jacobian"):
+        monkeypatch.setattr(hg, name, lambda *a, n=name: pytest.fail(f"the kernel's {n} ran"))
+    args = _batch_args(model, per_image)
+    before = dict(kernels.LAUNCHES)
+    t = {}
+    with stage(t, "hb_accumulate", torch.device("cpu")):
+        H, b, cost, n = tpo._hb_batch(*args, True, True, timings=t)
+    assert calls == ["_project_plain", "_jacobian_plain"]
+    assert kernels.LAUNCHES == before and "hb_accumulate.geometry_kernel_rows" not in t
+    V = len(PARAMS[model]) + 6
+    assert H.shape == (2, V, V) and b.shape == (2, V) and int(n) > 0
+    assert bool(torch.isfinite(H).all() and torch.isfinite(b).all() and torch.isfinite(cost))
+
+
+@pytest.mark.parametrize("model,kernel", [("PINHOLE", True), ("SIMPLE_PINHOLE", True),
+                                          ("OPENCV", False), ("SIMPLE_RADIAL", False)])
+def test_the_kernel_is_chosen_by_device_and_camera_model(model, kernel):
+    cam = SimpleNamespace(spec=cm.CAMERA_MODELS[model])
+    assert hg.uses_kernel(cam, SimpleNamespace(device=torch.device("cuda", 0))) is kernel
+    assert hg.uses_kernel(cam, torch.zeros(4, 3)) is False
+    assert set(hg.KERNEL_MODELS) <= set(cm.CAMERA_MODELS)
+
+
+@pytest.mark.parametrize("model", ["PINHOLE", "OPENCV"])
+def test_the_kernel_wrappers_refuse_what_the_kernel_does_not_take(model):
+    """CPU tensors, or a model the kernel does not implement, never reach
+    the entry points: both wrappers raise and launch nothing."""
+    cam, params, q, t, pts = _batch_args(model, False)[:5]
+    d = torch.zeros(2, 500)
+    before = dict(kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        hg.project(cam, params, q, t, pts)
+    with pytest.raises(ValueError, match="the kernel takes"):
+        hg.jacobian(cam, params, q, t, pts, 0.004, d, d, d, True, True)
+    assert kernels.LAUNCHES == before

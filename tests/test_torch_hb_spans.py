@@ -110,6 +110,18 @@ def test_counts_equal_a_hand_count(opt):
     assert (t["hb_accumulate.rows"], t["hb_accumulate.residuals"]) == (rows, residuals)
 
 
+def test_the_cpu_geometry_counts_no_kernel_rows_and_launches_nothing(opt):
+    """On the CPU ``_hb_batch`` takes the plain geometry (``ops/hb_geometry.py``):
+    no ``hb_accumulate.geometry_kernel_rows``, no launch of either mode."""
+    from dataset_pipeline_tpu_torch import kernels
+
+    before = dict(kernels.LAUNCHES)
+    t = {}
+    _accumulate(opt, t)
+    assert "hb_accumulate.geometry_kernel_rows" not in t and t["hb_accumulate.rows"] > 0
+    assert kernels.LAUNCHES == before
+
+
 def test_results_bit_equal_with_and_without_timings(opt):
     H0, b0, c0, _ = _accumulate(opt, None)
     H1, b1, c1, _ = _accumulate(opt, {})

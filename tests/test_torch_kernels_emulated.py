@@ -725,3 +725,87 @@ def test_gather_entry_points_reject_bad_arguments(emu):
     assert emu.dpt_row_extract_packed(*[d] * 10, 4, 128, 0, 2, None) != 0
     assert emu.dpt_row_extract_packed(*[d] * 10, 4, 128, 32, 0, None) != 0  # no block
     assert emu.dpt_row_extract_packed(*[d] * 10, 0, 128, 32, 2, None) == 0
+
+
+# ---------------------------------------------------------------------------
+# The H,b geometry kernel (csrc/hb_geometry.cu): both launch modes
+# ---------------------------------------------------------------------------
+
+HB_PARAMS = {"PINHOLE": [150.0, 156.0, 79.5, 59.5], "SIMPLE_PINHOLE": [150.0, 79.5, 59.5]}
+
+
+def _hb_inputs(model, per_image, nb=2, M=700):
+    """A 160x120 camera with a radius cutoff of 1, poses near the identity,
+    points (M,3) or (nb,M,3) 2 to 5 from the camera plane: a sixth behind it,
+    a sixth spread beyond the cutoff; B3's derivatives at random."""
+    import dataclasses
+
+    from dataset_pipeline_tpu_torch.models import cameras as cm
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+
+    rng = np.random.RandomState(3 + per_image)
+    cam = cm.make_camera(model, 160, 120, HB_PARAMS[model], cutoff=False, device="cpu")
+    cam = dataclasses.replace(cam, radius_cutoff_sq=torch.tensor(1.0))
+    shape = (nb, M) if per_image else (M,)
+    z = rng.uniform(2.0, 5.0, shape)
+    z[..., : M // 6] *= -1.0
+    n = rng.uniform(-0.5, 0.5, shape + (2,))
+    n[..., M // 6: M // 3, :] *= 4.0
+    pts = torch.from_numpy(np.concatenate([n * np.abs(z)[..., None], z[..., None]], -1)
+                           .astype(np.float32))
+    pose = SE3.exp(torch.from_numpy((0.02 * rng.randn(nb, 6)).astype(np.float32)))
+    derivs = [torch.from_numpy(rng.randn(nb, M).astype(np.float32)) for _ in range(3)]
+    return cam, pose.q.contiguous(), pose.t.contiguous(), pts, derivs
+
+
+@pytest.mark.parametrize("model", sorted(HB_PARAMS))
+@pytest.mark.parametrize("per_image", [False, True])
+@pytest.mark.parametrize("dynamic_scale,optimize_intrinsics", [(False, False), (True, True),
+                                                               (True, False), (False, True)])
+def test_hb_geometry_kernel_emulated(emu, model, per_image, dynamic_scale, optimize_intrinsics):
+    """``project``: valid bit-equal and pix within 1e-6 of the plain
+    version, relatively (a few float32 ulps: the norm of the quaternion and
+    the rotation round in another order); ``jacobian``: the layout
+    [P intrinsics | 6 pose], and J within 1e-3 of the jvp on valid rows,
+    relative to the entry plus a thousandth of its column's largest (the
+    footprint's tangent is a difference of nearly equal terms). M = 700
+    leaves a partial last block."""
+    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
+
+    cam, q, t, pts, (dpx, dpy, dvds) = _hb_inputs(model, per_image)
+    nb, M = q.shape[0], pts.shape[-2]
+    uf = int(cam.spec.unique_focal)
+    pix = torch.full((nb, M, 2), float("nan"))
+    valid = torch.zeros((nb, M), dtype=torch.bool)
+    cut = cam.radius_cutoff_sq
+    assert emu.dpt_hb_geometry_project(q.data_ptr(), t.data_ptr(), cam.params.data_ptr(), uf,
+                                       cut.data_ptr(), 0.0, pts.data_ptr(), int(per_image), M, nb,
+                                       pix.data_ptr(), valid.data_ptr(), None) == 0
+    V = (cam.params.shape[0] if optimize_intrinsics else 0) + 6
+    J = torch.full((nb, M, V), float("nan"))
+    assert emu.dpt_hb_geometry_jacobian(q.data_ptr(), t.data_ptr(), cam.params.data_ptr(), uf,
+                                        pts.data_ptr(), int(per_image), M, nb, dpx.data_ptr(),
+                                        dpy.data_ptr(), dvds.data_ptr(), 0.004,
+                                        int(dynamic_scale), int(optimize_intrinsics),
+                                        J.data_ptr(), None) == 0
+    pix_p, valid_p = tpo._project_plain(cam, cam.params, q, t, pts)
+    J_p = tpo._jacobian_plain(cam, cam.params, q, t, pts, 0.004, dpx, dpy, dvds,
+                              optimize_intrinsics, dynamic_scale)
+    assert torch.equal(valid, valid_p) and 0.4 < valid_p.float().mean() < 0.8
+    np.testing.assert_allclose(pix.numpy(), pix_p.numpy(), rtol=1e-6, atol=1e-5)
+    Jv, Jpv = J[valid_p].double(), J_p[valid_p].double()
+    scale = Jpv.abs() + 1e-3 * Jpv.abs().amax(0)
+    assert bool(torch.isfinite(J).all())
+    assert bool(((Jv - Jpv).abs() <= 1e-3 * scale).all()), float(((Jv - Jpv).abs() / scale).max())
+
+
+def test_hb_geometry_entry_points_reject_bad_arguments(emu):
+    z = torch.zeros(64)
+    d = z.data_ptr()
+    assert emu.dpt_hb_geometry_project(d, d, d, 0, None, 1.0, d, 0, 4, 0, d, d, None) != 0  # nb 0
+    assert emu.dpt_hb_geometry_project(d, d, d, 0, None, 1.0, d, 0, -1, 1, d, d, None) != 0
+    assert emu.dpt_hb_geometry_project(d, d, d, 0, None, 1.0, d, 0, 0, 1, d, d, None) == 0
+    args = (d, 0, 4, 65536, d, d, d, 0.01, 1, 1, d, None)  # nb above the grid's y
+    assert emu.dpt_hb_geometry_jacobian(d, d, d, 0, *args) != 0
+    assert emu.dpt_hb_geometry_jacobian(d, d, d, 0, d, 0, 0, 1, d, d, d, 0.01, 1, 1, d,
+                                        None) == 0  # nothing to do
