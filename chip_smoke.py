@@ -1637,17 +1637,75 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
     return launches, captured, (tq, tt), geometry
 
 
-def hb_pix_tolerance(torch, q, t, pts, f):
+def hb_pix_tolerance(torch, q, t, pts, f, lens: bool = False):
     """Float32 rounding of the projection per row (as tests/test_torch_cuda.py
     bounds it): the camera-frame point is good to a few ulps of the largest
     coordinate that made it, and the pixel is f (p.xy / z): an error e in p
-    moves it by f e (1 + |p.xy / z|) / |z|."""
+    moves it by f e (1 + |p.xy / z|) / |z|. A fisheye lens doubles that (its
+    slope is below 2) and adds a few ulps of its own arithmetic."""
     from dataset_pipeline_tpu_torch.models.lie import SE3
 
     p = SE3(q[:, None].double(), t[:, None].double()).apply(pts.double())
     big = torch.maximum(pts.double().abs().amax(-1), t.double().abs().amax(-1)[:, None])
     n = (p[..., :2] / p[..., 2:]).abs().amax(-1)
-    return (HB_PIX_ULPS * 2.0 ** -24 * float(f) * big * (1 + n) / p[..., 2].abs())[..., None]
+    tol = (HB_PIX_ULPS * 2.0 ** -24 * float(f) * big * (1 + n) / p[..., 2].abs())[..., None]
+    return 2 * tol + 16 * 2.0 ** -24 * float(f) * (1 + n)[..., None] if lens else tol
+
+
+HB_LENS_ORACLE_POINTS = 1 << 20  # points per block of the float64 oracle under a lens
+
+
+def run_registrator_lens(torch, kernels, optimizer, seed: int = 19):
+    """One LM iteration of the benchmark's fisheye cell (``perfbench``'s
+    ``dslr_fisheye.full_res``: ETH3D's THIN_PRISM_FISHEYE DSLR camera at
+    6048x4032, built by ``make_optimizer`` as the ImageRegistrator CLI
+    builds it) from the seed's start state. Returns its launch counts and
+    the inputs of its first H,b geometry ``jacobian`` launch (the large ones
+    on the host). Every geometry row is the kernel's."""
+    from perfbench import harness
+    from perfbench.drivers.register_fisheye import build
+    from perfbench.scene.dslr_fisheye import make_scene
+
+    t0 = time.perf_counter()
+    cfg = harness.load_json("configs", "eth3d_dslr_fisheye_register")
+    scene = make_scene(cfg["scene"], seed, "cuda", levels=True)
+    opt, _ = build(scene, cfg, "cuda")
+    del scene
+    torch.cuda.synchronize()
+    set_up = time.perf_counter() - t0
+    geometry, jacobian = {}, optimizer.hb_geometry.jacobian
+
+    def keep_geometry(camera, params, q, t, points, radius, dpx, dpy, dvds, oi, ds):
+        if not geometry:
+            geometry.update(camera=camera, params=params.clone(), q=q.clone(), t=t.clone(),
+                            points=points.cpu(), radius=radius, dpx=dpx.cpu(), dpy=dpy.cpu(),
+                            dvds=dvds.cpu(), optimize_intrinsics=oi, dynamic_scale=ds)
+        return jacobian(camera, params, q, t, points, radius, dpx, dpy, dvds, oi, ds)
+
+    timings = {}
+    opt.timings = timings
+    opt.current_scale = 0
+    kernels.reset_launch_counts()
+    optimizer.hb_geometry.jacobian = keep_geometry  # for this run only
+    t0 = time.perf_counter()
+    try:
+        opt.run_on_current_scale(max_iterations=1)
+        torch.cuda.synchronize()
+    finally:
+        optimizer.hb_geometry.jacobian = jacobian
+    wall = time.perf_counter() - t0
+    launches = {k: kernels.LAUNCHES[k] for k in REG_KERNELS}
+    rows, kernel_rows = (timings.get(f"hb_accumulate.{k}", 0) for k in ("rows", "geometry_kernel_rows"))
+    W, H = cfg["scene"]["image_size"]
+    print(f"fisheye registrator (THIN_PRISM_FISHEYE, {W}x{H}, seed {seed}): set-up {set_up:.1f} s, "
+          f"one LM iteration with its refresh and final cost {wall:.3f} s; launches {launches}; "
+          f"geometry rows by the kernel {kernel_rows} of {rows}")
+    if not 0 < kernel_rows == rows:
+        fail(f"fisheye registrator: the H,b geometry kernel computed {kernel_rows} of {rows} rows")
+    if not geometry:
+        fail("fisheye registrator: no H,b geometry jacobian launch to keep the inputs of")
+    del opt
+    return launches, geometry
 
 
 def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
@@ -1657,13 +1715,16 @@ def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
     rows; each mode's CUDA-event times beside its bound in bytes (project:
     12 B a point read, pix and valid 9 B a row written; jacobian: 12 B a
     point, B3's derivatives 12 B a row (8 without the footprint row) read,
-    4 V B a row written), and the plain version's time."""
+    4 V B a row written), and the plain version's time. Under a fisheye
+    lens, which the kernel takes in float64, J is held to the plain version
+    in float64, in blocks of HB_LENS_ORACLE_POINTS points."""
     cam, params, q, t, r = cap["camera"], cap["params"], cap["q"], cap["t"], cap["radius"]
     oi, ds = cap["optimize_intrinsics"], cap["dynamic_scale"]
     pts = cap["points"].cuda()
     dpx, dpy, dvds = (cap[k].cuda() for k in ("dpx", "dpy", "dvds"))
     nb, M = dpx.shape
     V = (params.shape[0] if oi else 0) + 6
+    lens = cam.spec.fisheye
 
     def project():
         return hg.project(cam, params, q, t, pts)
@@ -1683,12 +1744,28 @@ def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
     if not torch.equal(valid, valid_p):
         fail(f"H,b geometry at {label}: valid differs from the plain version in "
              f"{int((valid != valid_p).sum())} rows")
-    pix_err = ((pix.double() - pix_p.double()).abs() / hb_pix_tolerance(torch, q, t, pts, params[0]))
+    pix_err = ((pix.double() - pix_p.double()).abs()
+               / hb_pix_tolerance(torch, q, t, pts, params[0], lens))
     pix_err = float(pix_err[valid_p].max())
     del pix_p
-    J_p = optimizer._jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
-    Jv, Jpv = J[valid_p].double(), J_p[valid_p].double()
+    if lens:
+        import dataclasses
+
+        # every row, in blocks of points, against the plain version in float64
+        c64 = dataclasses.replace(cam, params=params.double())
+        J_p = torch.empty((nb, M, V), dtype=torch.float64, device=J.device)
+        for a in range(0, M, HB_LENS_ORACLE_POINTS):
+            sl = slice(a, a + HB_LENS_ORACLE_POINTS)
+            J_p[:, sl] = optimizer._jacobian_plain(
+                c64, c64.params, q.double(), t.double(),
+                (pts[:, sl] if pts.dim() == 3 else pts[sl]).double(), r, dpx[:, sl].double(),
+                dpy[:, sl].double(), dvds[:, sl].double(), oi, ds)
+        Jpv = J_p[valid_p]
+    else:
+        J_p = optimizer._jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
+        Jpv = J_p[valid_p].double()
     del J_p
+    Jv = J[valid_p].double()
     J_err = float(((Jv - Jpv).abs() / (HB_J_RTOL * (Jpv.abs() + 1e-3 * Jpv.abs().amax(0)))).max())
     finite = bool(torch.isfinite(Jv).all())
     del Jv, Jpv
@@ -1701,7 +1778,7 @@ def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
     res.update(kernel_ms(jacobian, torch), **bound(12 * point_rows + (8 + 4 * ds + 4 * V) * rows, 0))
     res["project"] = {**kernel_ms(project, torch), **bound(12 * point_rows + 9 * rows, 0)}
     res["plain_ms"] = cuda_ms(plain, torch, warmup=1, reps=3)  # both modes, as _hb_batch ran them
-    print(f"H,b geometry kernel at {label} ({nb} images x {M} points, V = {V}, footprint row "
+    print(f"H,b geometry kernel ({cam.spec.name}) at {label} ({nb} images x {M} points, V = {V}, footprint row "
           f"{bool(ds)}): pix / tolerance max {pix_err:.3f}, J / tolerance max {J_err:.3f} on "
           f"{res['valid_rows']} valid rows; project {res['project']['ms']:.4f} ms (one launch "
           f"{res['project']['ms_one_launch']:.4f}, bound {res['project']['bound_ms']:.4f}), jacobian "
@@ -3783,6 +3860,13 @@ def main(argv=None) -> int:
                                     "the DSLR run's first jacobian launch")
         del dslr_geometry
         torch.cuda.empty_cache()
+        reg_lens, lens_geometry = run_registrator_lens(torch, kernels, optimizer)
+        torch.cuda.empty_cache()
+        hb_geom["thin_prism_fisheye"] = check_hb_geometry(
+            torch, optimizer.hb_geometry, optimizer, lens_geometry,
+            "the fisheye cell's first jacobian launch")
+        del lens_geometry
+        torch.cuda.empty_cache()
 
         # ground truth and rendering: no hand-written kernel on this path
         t0 = time.perf_counter()
@@ -3881,7 +3965,8 @@ def main(argv=None) -> int:
 
     # per kernel: the launches of each main path that runs it (by counter: B1 and
     # B3 have two launch modes), and this run's numbers
-    by_path = {"icp_scan_aligner": launches, "image_registrator": reg, "icp_bench": bench,
+    by_path = {"icp_scan_aligner": launches, "image_registrator": reg,
+               "image_registrator_lens": reg_lens, "icp_bench": bench,
                "gather_probe": probe_launches, **slice4_launches, "joint_ba": slice5_launches,
                **slice6_launches, **slice7_launches, **slice8_launches}
     measured = {"gn_fused": b1, "moment_gram": b2,

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, NamedTuple
+from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
@@ -160,6 +160,11 @@ class Camera:
 
     ``radius_cutoff_sq`` bounds the (pre-warped) normalized-plane radius
     beyond which projection is invalid; inf unless :func:`init_cutoff` set it.
+    ``lens``: whether :func:`project` differs from the pinhole projection of
+    the focals and principal point (a fisheye pre-warp, the FOV model, or a
+    polynomial distortion with a nonzero coefficient), decided from the
+    parameters the camera is made with when not given, and kept by
+    :meth:`with_params`.
     """
 
     model: str
@@ -167,6 +172,14 @@ class Camera:
     height: int
     params: torch.Tensor
     radius_cutoff_sq: torch.Tensor
+    lens: Optional[bool] = None
+
+    def __post_init__(self):
+        if self.lens is None:
+            spec = self.spec
+            lens = spec.dist_fn is not _dist_none and (
+                spec.fisheye or spec.dist_fn is _dist_fov or bool(torch.any(self.dist_params != 0)))
+            object.__setattr__(self, "lens", lens)
 
     @property
     def spec(self) -> ModelSpec:

@@ -10,7 +10,8 @@ Points are ``(M, 3)``, shared by the chunk's images, or ``(nb, M, 3)``, the
 observations cache's views.
 
 ``_hb_batch`` launches the kernel where :func:`uses_kernel` holds (points on
-the card, a camera model in :data:`KERNEL_MODELS`) and takes its plain
+the card, a camera model in :data:`KERNEL_MODELS`: PINHOLE, SIMPLE_PINHOLE and
+THIN_PRISM_FISHEYE, V up to 18) and takes its plain
 version, ``torch.func.jvp`` under ``vmap`` (``optimizer._project_plain``,
 ``optimizer._jacobian_plain``, the oracle), everywhere else.
 ``kernels.LAUNCHES`` counts the launches per mode (``hb_geometry_project``,
@@ -24,7 +25,9 @@ import torch
 from dataset_pipeline_tpu_torch import kernels
 from dataset_pipeline_tpu_torch.models import cameras as cm
 
-KERNEL_MODELS = ("PINHOLE", "SIMPLE_PINHOLE")
+# the kernel's ``model`` argument per camera model it implements
+_MODEL_IDS = {"PINHOLE": 0, "SIMPLE_PINHOLE": 1, "THIN_PRISM_FISHEYE": 2}
+KERNEL_MODELS = tuple(_MODEL_IDS)
 
 
 def uses_kernel(camera: cm.Camera, points) -> bool:
@@ -80,7 +83,7 @@ def project(camera: cm.Camera, params, pose_q, pose_t, points):
     pix = torch.empty((nb, M, 2), dtype=torch.float32, device=points.device)
     valid = torch.empty((nb, M), dtype=torch.bool, device=points.device)
     err = kernels.library().dpt_hb_geometry_project(
-        q, t, prm, int(camera.spec.unique_focal), cut_ptr, cut, pts, int(per_image), M, nb,
+        q, t, prm, _MODEL_IDS[camera.spec.name], cut_ptr, cut, pts, int(per_image), M, nb,
         pix.data_ptr(), valid.data_ptr(), torch.cuda.current_stream(points.device).cuda_stream)
     kernels.check(err, "dpt_hb_geometry_project")
     if M:  # the entry point launches nothing for zero rows
@@ -104,7 +107,7 @@ def jacobian(camera: cm.Camera, params, pose_q, pose_t, points, radius: float, d
     V = (params.shape[0] if optimize_intrinsics else 0) + 6
     J = torch.empty((nb, M, V), dtype=torch.float32, device=points.device)
     err = kernels.library().dpt_hb_geometry_jacobian(
-        q, t, prm, int(camera.spec.unique_focal), pts, int(per_image), M, nb,
+        q, t, prm, _MODEL_IDS[camera.spec.name], pts, int(per_image), M, nb,
         *(x.data_ptr() for x in derivs), float(radius), int(dynamic_scale),
         int(optimize_intrinsics), J.data_ptr(), torch.cuda.current_stream(points.device).cuda_stream)
     kernels.check(err, "dpt_hb_geometry_jacobian")

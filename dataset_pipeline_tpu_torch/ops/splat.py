@@ -6,6 +6,12 @@ winner's ``aux``), ``render_points_depth[_color]``, ``render_splats_depth``,
 cube-face rotations. Every renderer takes a batch of images, ``(B,N,3)``
 camera-frame points, and returns ``(B,H,W)``.
 
+``render_splats_depth`` takes the camera: under a camera with a lens
+(``Camera.lens``) the splat centres sit at the model's pixels, as the
+original pipeline's renderer draws occlusion through the camera model; the
+JAX function takes focals and a principal point and places them at the
+pinhole's.
+
 The z-buffer is one ``scatter_reduce_(..., "amin")``, which does not depend on
 the order of colliding writes, so the result is deterministic on the card as
 on the CPU. The winner's ``aux`` is found by a second ``amin`` over the point
@@ -22,6 +28,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from dataset_pipeline_tpu_torch.models import cameras as cm
+from dataset_pipeline_tpu_torch.ops import hb_geometry
+from dataset_pipeline_tpu_torch.utils.timing import count, span
 
 _INF = float("inf")
 
@@ -90,9 +100,24 @@ def render_points_depth_color(points_cam, colors, width: int, height: int, fx, f
     return depth.reshape(B, height, width), img.reshape(B, height, width, 3)
 
 
-def render_splats_depth(points_cam, radii_world, width: int, height: int,
-                        fx, fy, cx, cy, max_radius_px: int = 3):
-    """Z-buffer render of square screen-space splats for a batch of images.
+def lens_centres(camera, points_cam):
+    """(pix (B,N,2), valid (B,N)) of camera-frame points (B,N,3) by
+    ``cameras.project``: on the card, for a model the H,b geometry kernel
+    implements, by its ``project`` mode at the identity pose (the pose
+    leaves a point's bits as they are), else by the library."""
+    if hb_geometry.uses_kernel(camera, points_cam):
+        B = points_cam.shape[0]
+        q = torch.zeros((B, 4), dtype=torch.float32, device=points_cam.device)
+        q[:, 0] = 1.0
+        t = torch.zeros((B, 3), dtype=torch.float32, device=points_cam.device)
+        return hb_geometry.project(camera, camera.params, q, t, points_cam)
+    return cm.project(camera, points_cam)
+
+
+def render_splats_depth(points_cam, radii_world, camera, max_radius_px: int = 3, timings=None):
+    """Z-buffer render of square screen-space splats for a batch of images
+    of ``camera`` (a ``cameras.Camera``: its size, focals and principal
+    point, and its lens).
 
     ``points_cam`` (B,N,3) camera-frame points, ``radii_world`` (N,). Each
     point covers the pixels within its pixel radius ``r_px = f r / z``
@@ -101,13 +126,33 @@ def render_splats_depth(points_cam, radii_world, width: int, height: int,
     then tier k is min-dilated over a (2k+1)^2 window and the tiers are
     min-combined: the result of painting every (2k+1)^2 splat. Returns
     (B,H,W) float32, inf = empty.
+
+    Each splat centre is the pinhole pixel ``f X / z + c`` of the points in
+    front, unless the camera has a lens (``camera.lens``): then it is
+    ``cameras.project``'s pixel (:func:`lens_centres`) and the points that
+    projection marks invalid are dropped. The pixel radius stays ``f r /
+    z``: under ETH3D's DSLR camera (f = 5600 px, r = 0.03 m, z <= 6 m) every
+    splat reaches the clamp of 3 px, f r / z >= 28 px. With ``timings``
+    (``utils/timing.py``; on the card inside one of its open stages) the
+    lens's projection is the span ``occlusion_depths.project``, and
+    ``occlusion_depths.distorted_points`` counts the points x images
+    projected through it.
     """
     B = points_cam.shape[0]
+    width, height = camera.width, camera.height
+    fx, fy, cx, cy = camera.fx, camera.fy, camera.cx, camera.cy
     z = points_cam[..., 2]
-    valid = z > 0
-    safe_z = torch.where(valid, z, torch.ones_like(z))
-    x = fx * points_cam[..., 0] / safe_z + cx
-    y = fy * points_cam[..., 1] / safe_z + cy
+    if camera.lens:
+        with span(timings, "occlusion_depths.project", points_cam.device):
+            pix, valid = lens_centres(camera, points_cam)
+            x, y = pix[..., 0], pix[..., 1]
+        count(timings, "occlusion_depths.distorted_points", B * points_cam.shape[1])
+        safe_z = torch.where(valid, z, torch.ones_like(z))
+    else:
+        valid = z > 0
+        safe_z = torch.where(valid, z, torch.ones_like(z))
+        x = fx * points_cam[..., 0] / safe_z + cx
+        y = fy * points_cam[..., 1] / safe_z + cy
     f = 0.5 * (fx + fy)
     r_px = torch.clamp(f * radii_world / safe_z, 0.0, float(max_radius_px))
 

@@ -35,7 +35,7 @@ TF32 off).
 from __future__ import annotations
 
 from contextlib import nullcontext
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional
 
 import numpy as np
@@ -328,6 +328,16 @@ def _corrected_points(pack, corr_q, corr_t, si: int):
     return quat_rotate_fused(corr_q[si][scan], pack.scene_points[si]) + corr_t[si][scan]
 
 
+def _occlusion_camera(cam, d: int):
+    """``cam`` on the occlusion grid of the image divided by ``d`` per axis
+    (``width // d`` x ``height // d``, pixel-centre convention): the focals
+    over d, the centres (c + 0.5) / d - 0.5, the lens as it is."""
+    n = 1 if cam.spec.unique_focal else 2
+    p = cam.params
+    return replace(cam, width=cam.width // d, height=cam.height // d,
+                   params=torch.cat([p[:n] / d, (p[n:n + 2] + 0.5) / d - 0.5, p[n + 2:]]))
+
+
 def _vis_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, current_scale,
                    camera=None):
     """Visibility + frozen footprint observation scale for one image: splat
@@ -350,8 +360,7 @@ def _vis_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, curren
     occl = render_splats_depth(
         p_cam[None], torch.full(pts.shape[:1], pack.occlusion_radius, dtype=torch.float32,
                                 device=pts.device),
-        wo, ho, cam.fx / d, cam.fy / d, (cam.cx + 0.5) / d - 0.5, (cam.cy + 0.5) / d - 0.5,
-        max_radius_px=2)[0]
+        _occlusion_camera(cam, d), max_radius_px=2)[0]
     # float bounds before the int cast (XLA's cast saturates, torch's wraps)
     ix = torch.clamp(torch.round((pix[:, 0] + 0.5) / d - 0.5).nan_to_num(0.0), 0, wo - 1).long()
     iy = torch.clamp(torch.round((pix[:, 1] + 0.5) / d - 0.5).nan_to_num(0.0), 0, ho - 1).long()

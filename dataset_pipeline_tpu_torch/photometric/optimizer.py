@@ -63,7 +63,7 @@ from dataset_pipeline_tpu_torch.ops.robust import (
 from dataset_pipeline_tpu_torch.ops.splat import render_splats_depth
 from dataset_pipeline_tpu_torch.photometric.obs_cache import ObservationsCache
 from dataset_pipeline_tpu_torch.photometric.problem import PhotoProblem
-from dataset_pipeline_tpu_torch.utils.timing import count, span, stage
+from dataset_pipeline_tpu_torch.utils.timing import count, span, stage, within_stage
 
 _INVALID_INTENSITY = 3.0e8  # neighbor-validity sentinel, exact in float32
 _JVP_ELEMENTS = 1 << 25  # (tangent, image, point) triples per vmapped jvp pass
@@ -392,14 +392,15 @@ def _jacobian_plain(camera, params, pose_q, pose_t, points, radius, dpx, dpy, dv
                     optimize_intrinsics: bool, dynamic_scale: bool):
     """J (nb,M,V) of :func:`_project_plain`'s rows by ``torch.func.jvp``
     under ``vmap``: each image's pixel depends only on its own pose, so one
-    shared 6-vector tangent gives every image's pose Jacobian at once."""
+    shared 6-vector tangent gives every image's pose Jacobian at once. In
+    the points' dtype (float64 inputs give the kernel's float64 oracle)."""
     pose0 = _batch_pose(pose_q, pose_t)
     geom = _geom_fn(camera, points, radius, dynamic_scale,
                     lambda eps: SE3.exp(eps).compose(pose0))
-    eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
+    eps0 = torch.zeros(6, dtype=points.dtype, device=points.device)
     P = params.shape[0]
     return _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
-                             _basis(P, 6, optimize_intrinsics, eps0.device),
+                             _basis(P, 6, optimize_intrinsics, eps0.device).to(eps0.dtype),
                              _intensity_chain(dpx, dpy, dvds, dynamic_scale),
                              dpx.shape[0] * dpx.shape[1])
 
@@ -903,7 +904,11 @@ class PhotometricOptimizer:
     def _occlusion_depths(self):
         """Occlusion depth per group, (B,H,W) at full resolution,
         ``image_chunk`` images per render: the occlusion mesh (with boundary
-        masking) when the problem has one, else the point splats."""
+        masking) when the problem has one, else the point splats, centred
+        through the camera's lens (``render_splats_depth``). Inside a stage,
+        ``timings`` gets the span ``occlusion_depths.project`` and the count
+        ``occlusion_depths.distorted_points`` of a camera with a lens."""
+        timings = within_stage(self.timings)
         out = []
         radii = torch.full((self.p.occlusion_points.shape[0],), self.p.occlusion_radius,
                            dtype=torch.float32, device=self.device)
@@ -917,9 +922,9 @@ class PhotometricOptimizer:
                         cam, q, t, self.p.occlusion_mesh, splat_radius=self.p.occlusion_radius))
                     continue
                 p_cam = _batch_pose(q, t).apply(self.p.occlusion_points)
-                chunks.append(render_splats_depth(p_cam, radii, cam.width, cam.height, cam.fx,
-                                                  cam.fy, cam.cx, cam.cy,
-                                                  max_radius_px=self.max_radius_px))
+                chunks.append(render_splats_depth(p_cam, radii, cam,
+                                                  max_radius_px=self.max_radius_px,
+                                                  timings=timings))
             out.append(torch.cat(chunks, 0))
         return out
 

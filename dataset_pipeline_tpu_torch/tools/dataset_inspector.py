@@ -189,8 +189,7 @@ def _transfer(args, params, state, pts_t, pts, device):
     radii = torch.full((len(pts),), params.splat_radius, dtype=torch.float32, device=device)
 
     def occlusion(cam, pose):
-        return render_splats_depth(pose.apply(pts_t)[None], radii, cam.width, cam.height,
-                                   cam.fx, cam.fy, cam.cx, cam.cy)[0].cpu().numpy()
+        return render_splats_depth(pose.apply(pts_t)[None], radii, cam)[0].cpu().numpy()
 
     existing = combined_mask(args.image_base_path, tgt.name, (tcam.height, tcam.width))
     merged = transfer_labels(pts, scam, spose, smask, occlusion(scam, spose), tcam, tpose,
@@ -310,8 +309,7 @@ def main(argv=None) -> int:
             if "depth" in modes:
                 save(depth_rgb, base, "depth")
             if "occlusion" in modes:
-                od = render_splats_depth(p_cam, radii, cam.width, cam.height, cam.fx, cam.fy,
-                                         cam.cx, cam.cy)[0]
+                od = render_splats_depth(p_cam, radii, cam)[0]
                 save(_colormap(od, 0.0, args.occlusion_depth_saturation), base, "occlusion")
             if "scan" in modes:
                 _, rgb = render_points_depth_color(p_cam, colors_t, cam.width, cam.height,

@@ -113,7 +113,8 @@ def _scan_rendering(camera, pose_q, pose_t, points, colors, keep, occl_depth, ba
 def render_occlusion_depth(camera, pose: SE3, occlusion_points, splat_radius: float,
                            max_radius_px: int = 3, occlusion_mesh=None):
     """(H,W) occlusion depth of one image: the mesh's (0 = background, -1
-    near occlusion boundaries) or the splats' (inf = empty)."""
+    near occlusion boundaries) or the splats' (inf = empty), centred
+    through the camera's lens (``render_splats_depth``)."""
     if occlusion_mesh is not None:
         return render_occlusion_mesh_depth(
             camera, pose, occlusion_mesh, splat_radius=splat_radius,
@@ -124,8 +125,7 @@ def render_occlusion_depth(camera, pose: SE3, occlusion_points, splat_radius: fl
     behind = torch.tensor([0.0, 0.0, -1.0], dtype=p_cam.dtype, device=p_cam.device)
     p_cam = torch.where(in_range[:, None], p_cam, behind)
     radii = torch.full((p_cam.shape[0],), splat_radius, dtype=torch.float32, device=p_cam.device)
-    return render_splats_depth(p_cam[None], radii, camera.width, camera.height, camera.fx,
-                               camera.fy, camera.cx, camera.cy, max_radius_px=max_radius_px)[0]
+    return render_splats_depth(p_cam[None], radii, camera, max_radius_px=max_radius_px)[0]
 
 
 def _image_pose(im: ImageState, up_inv: np.ndarray, device) -> SE3:

@@ -90,6 +90,13 @@ def span(timings: dict | None, name: str, device: torch.device, host: bool = Fal
                 timings[name + ".host"] = timings.get(name + ".host", 0.0) + seconds
 
 
+def within_stage(timings: dict | None) -> dict | None:
+    """``timings`` if one of its stages is open on this thread, so that its
+    spans will be read, else None: for code that runs both inside a stage
+    and outside any."""
+    return timings if timings is not None and any(t is timings for t, _ in _open_stages()) else None
+
+
 def count(timings: dict | None, name: str, n: int) -> None:
     """Add the integer ``n`` to ``timings[name]`` (nothing with ``None``)."""
     if timings is not None:

@@ -1067,7 +1067,9 @@ def test_spans_time_by_events_read_when_their_stage_ends(cuda_device):
 # ---------------------------------------------------------------------------
 
 HB_PARAMS = {"PINHOLE": [150.0, 156.0, 79.5, 59.5], "SIMPLE_PINHOLE": [150.0, 79.5, 59.5],
-             "OPENCV": [150.0, 156.0, 79.5, 59.5, 0.01, -0.002, 1e-4, -2e-4]}
+             "OPENCV": [150.0, 156.0, 79.5, 59.5, 0.01, -0.002, 1e-4, -2e-4],
+             "THIN_PRISM_FISHEYE": [150.0, 156.0, 79.5, 59.5, 0.28, 0.09, 2e-4, -3e-4, 2e-3, 1e-3,
+                                    4e-4, -2e-4]}
 
 
 def _hb_scene(device, model, per_image, nb=3, M=6000, seed=0, hidden=True):
@@ -1105,11 +1107,14 @@ def _pix_tolerance(cam, q, t, pts):
     big = torch.maximum(pts.double().abs().amax(-1), t.double().abs().amax(-1)[:, None])
     f = cam.params[0].double()
     n = (p[..., :2] / p[..., 2:]).abs().amax(-1)
-    return (8 * 2.0 ** -24 * f * big * (1 + n) / p[..., 2].abs())[..., None]
+    tol = (8 * 2.0 ** -24 * f * big * (1 + n) / p[..., 2].abs())[..., None]
+    if cam.spec.fisheye:  # the lens's slope (< 2 here) and a few ulps of its own arithmetic
+        tol = 2 * tol + 16 * 2.0 ** -24 * f * (1 + n)[..., None]
+    return tol
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["PINHOLE", "SIMPLE_PINHOLE"])
+@pytest.mark.parametrize("model", ["PINHOLE", "SIMPLE_PINHOLE", "THIN_PRISM_FISHEYE"])
 @pytest.mark.parametrize("per_image", [False, True])
 @pytest.mark.parametrize("dynamic_scale", [False, True])
 @pytest.mark.parametrize("optimize_intrinsics", [False, True])
@@ -1119,7 +1124,8 @@ def test_hb_geometry_kernel_matches_plain(cuda_device, model, per_image, dynamic
     projection; ``jacobian``: J within 1e-3 of the jvp's on valid rows,
     relative to the entry plus a thousandth of its column's largest (the
     jvp's footprint tangent is a difference of nearly equal terms, good to
-    ~1e-4). One launch of each mode."""
+    ~1e-4). THIN_PRISM_FISHEYE's J is held to the plain version in float64,
+    as the kernel takes the lens in double. One launch of each mode."""
     from dataset_pipeline_tpu_torch.ops import hb_geometry as hg
     from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
 
@@ -1132,8 +1138,16 @@ def test_hb_geometry_kernel_matches_plain(cuda_device, model, per_image, dynamic
     assert gn.LAUNCHES["hb_geometry_project"] == n0["hb_geometry_project"] + 1
     assert gn.LAUNCHES["hb_geometry_jacobian"] == n0["hb_geometry_jacobian"] + 1
     pix_p, valid_p = tpo._project_plain(cam, cam.params, q, t, pts)
-    J_p = tpo._jacobian_plain(cam, cam.params, q, t, pts, 0.004, dpx, dpy, dvds,
-                              optimize_intrinsics, dynamic_scale)
+    if cam.spec.fisheye:
+        import dataclasses
+
+        c64 = dataclasses.replace(cam, params=cam.params.double())
+        J_p = tpo._jacobian_plain(c64, c64.params, q.double(), t.double(), pts.double(), 0.004,
+                                  dpx.double(), dpy.double(), dvds.double(), optimize_intrinsics,
+                                  dynamic_scale)
+    else:
+        J_p = tpo._jacobian_plain(cam, cam.params, q, t, pts, 0.004, dpx, dpy, dvds,
+                                  optimize_intrinsics, dynamic_scale)
     assert gn.LAUNCHES == {**n0, "hb_geometry_project": n0["hb_geometry_project"] + 1,
                            "hb_geometry_jacobian": n0["hb_geometry_jacobian"] + 1}
     assert torch.equal(valid, valid_p)
@@ -1186,7 +1200,7 @@ def _hb_batch_inputs(device, model, per_image, seed=5):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("model", ["PINHOLE", "SIMPLE_PINHOLE", "OPENCV"])
+@pytest.mark.parametrize("model", ["PINHOLE", "SIMPLE_PINHOLE", "OPENCV", "THIN_PRISM_FISHEYE"])
 @pytest.mark.parametrize("per_image", [False, True])
 def test_hb_batch_on_the_card_matches_cpu(cuda_device, model, per_image):
     """``_hb_batch`` (intrinsics and the footprint row optimised): equal

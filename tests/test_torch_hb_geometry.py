@@ -23,7 +23,9 @@ from dataset_pipeline_tpu_torch.utils.timing import stage
 torch.set_num_threads(2)
 
 PARAMS = {"PINHOLE": [150.0, 156.0, 79.5, 59.5], "SIMPLE_PINHOLE": [150.0, 79.5, 59.5],
-          "OPENCV": [150.0, 156.0, 79.5, 59.5, 0.01, -0.002, 1e-4, -2e-4]}
+          "OPENCV": [150.0, 156.0, 79.5, 59.5, 0.01, -0.002, 1e-4, -2e-4],
+          "THIN_PRISM_FISHEYE": [150.0, 156.0, 79.5, 59.5, 0.28, 0.09, 2e-4, -3e-4, 2e-3, 1e-3,
+                                 4e-4, -2e-4]}
 
 
 def _batch_args(model, per_image, nb=2, M=500):
@@ -81,7 +83,8 @@ def test_cpu_tensors_take_the_plain_version(model, per_image, monkeypatch):
 
 
 @pytest.mark.parametrize("model,kernel", [("PINHOLE", True), ("SIMPLE_PINHOLE", True),
-                                          ("OPENCV", False), ("SIMPLE_RADIAL", False)])
+                                          ("OPENCV", False), ("SIMPLE_RADIAL", False),
+                                          ("THIN_PRISM_FISHEYE", True)])
 def test_the_kernel_is_chosen_by_device_and_camera_model(model, kernel):
     cam = SimpleNamespace(spec=cm.CAMERA_MODELS[model])
     assert hg.uses_kernel(cam, SimpleNamespace(device=torch.device("cuda", 0))) is kernel

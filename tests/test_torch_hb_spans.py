@@ -122,6 +122,38 @@ def test_the_cpu_geometry_counts_no_kernel_rows_and_launches_nothing(opt):
     assert kernels.LAUNCHES == before
 
 
+@pytest.mark.parametrize("model", ["PINHOLE", "THIN_PRISM_FISHEYE"])
+def test_the_occlusion_projection_through_a_lens_is_spanned_and_counted(opt, model):
+    """Under a camera with a lens the refresh's ``occlusion`` stage holds
+    the span ``occlusion_depths.project`` and counts every (image, scan
+    point) pair in ``occlusion_depths.distorted_points``; a pinhole camera
+    records neither, and outside a stage nothing is recorded."""
+    from dataset_pipeline_tpu_torch.models import cameras as cm
+
+    g = opt.p.groups[0]
+    pinhole = g.camera
+    if model != "PINHOLE":
+        g.camera = cm.make_camera(model, pinhole.width, pinhole.height,
+                                  torch.cat([pinhole.params, torch.tensor(
+                                      [0.28, 0.09, 2e-4, -3e-4, 2e-3, 1e-3, 4e-4, -2e-4])]),
+                                  device="cpu")
+    try:
+        t = {}
+        opt.timings = t
+        with opt._stage("occlusion"):
+            occl = opt._occlusion_depths()
+        outside = {}
+        opt.timings = outside
+        assert torch.equal(opt._occlusion_depths()[0], occl[0]) and outside == {}
+    finally:
+        opt.timings = None
+        g.camera = pinhole
+    lens = model != "PINHOLE"
+    assert ("occlusion_depths.project" in t) is lens
+    assert t.get("occlusion_depths.distorted_points") == (
+        g.num_images * opt.p.occlusion_points.shape[0] if lens else None)
+
+
 def test_results_bit_equal_with_and_without_timings(opt):
     H0, b0, c0, _ = _accumulate(opt, None)
     H1, b1, c1, _ = _accumulate(opt, {})

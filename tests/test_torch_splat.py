@@ -12,6 +12,8 @@ the medians pick neighbour values, and colour means sum at most eight
 integers.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,8 +36,18 @@ def test_zbuffer_min_matches_jax():
     assert np.isinf(got).any() and np.isfinite(got).sum() > 2000
 
 
+def _camera(model, W, H, params):
+    from dataset_pipeline_tpu_torch.models import cameras as cm
+
+    return cm.make_camera(model, W, H, params, device="cpu")
+
+
 @pytest.mark.parametrize("max_radius_px", [1, 3])
-def test_render_splats_depth_matches_jax(max_radius_px):
+@pytest.mark.parametrize("camera", ["PINHOLE", "SIMPLE_PINHOLE", "OPENCV"])
+def test_render_splats_depth_matches_jax(max_radius_px, camera):
+    """A camera without a lens (PINHOLE, SIMPLE_PINHOLE, OPENCV with zero
+    distortion) gives the JAX function's pinhole centres of its focals and
+    principal point, bit for bit."""
     rng = np.random.RandomState(2 + max_radius_px)
     W, H, f, cx, cy = 96, 72, 80.0, 47.5, 35.5
     n = 3000
@@ -44,15 +56,96 @@ def test_render_splats_depth_matches_jax(max_radius_px):
     pts = np.concatenate([xy * np.abs(z)[:, None], z[:, None]], 1).astype(np.float32)
     radii = rng.uniform(0.0, 0.08, n).astype(np.float32)
     batch = np.stack([pts, pts[::-1] * np.float32(1.1)])
-    got = tsplat.render_splats_depth(torch.from_numpy(batch), torch.from_numpy(radii), W, H,
-                                     f, f + 1.0, cx, cy, max_radius_px=max_radius_px).numpy()
+    params = {"PINHOLE": [f, f + 1.0, cx, cy], "SIMPLE_PINHOLE": [f, cx, cy],
+              "OPENCV": [f, f + 1.0, cx, cy, 0.0, 0.0, 0.0, 0.0]}[camera]
+    cam = _camera(camera, W, H, params)
+    assert not cam.lens
+    got = tsplat.render_splats_depth(torch.from_numpy(batch), torch.from_numpy(radii), cam,
+                                     max_radius_px=max_radius_px).numpy()
     assert got.shape == (2, H, W)
+    fy = f if camera == "SIMPLE_PINHOLE" else f + 1.0
     for b in range(2):
         ref = np.asarray(jsplat.render_splats_depth(jnp.asarray(batch[b]), jnp.asarray(radii),
-                                                    W, H, f, f + 1.0, cx, cy,
+                                                    W, H, f, fy, cx, cy,
                                                     max_radius_px=max_radius_px))
         np.testing.assert_array_equal(got[b], ref)
         assert np.isfinite(ref).mean() > 0.3
+
+
+LENS_PARAMS = {
+    "THIN_PRISM_FISHEYE": [80.0, 81.0, 47.5, 35.5, 0.28, 0.09, 2e-4, -3e-4, 2e-3, 1e-3, 4e-4, -2e-4],
+    "OPENCV": [80.0, 81.0, 47.5, 35.5, -0.12, 0.03, 1e-3, -5e-4],
+}
+
+
+def _splats_by_loop(cam, p_cam, radius, R):
+    """The splat depth of one image, point by point: each point that
+    ``cameras.project`` marks valid paints the (2k+1)^2 square around the
+    pixel holding its projection, k = ceil(clamp(f radius / z, 0, R))."""
+    from dataset_pipeline_tpu_torch.models import cameras as cm
+
+    W, H = cam.width, cam.height
+    out = np.full((H, W), np.inf, np.float32)
+    f = 0.5 * (cam.fx + cam.fy)
+    for p in p_cam:
+        pix, ok = cm.project(cam, p)
+        if not bool(ok):
+            continue
+        z = p[2]
+        k = int(torch.ceil(torch.clamp(f * radius / z, 0.0, float(R))))
+        jx, jy = int(torch.floor(pix[0])), int(torch.floor(pix[1]))
+        y0, y1, x0, x1 = max(jy - k, 0), min(jy + k + 1, H), max(jx - k, 0), min(jx + k + 1, W)
+        if y0 < y1 and x0 < x1:
+            out[y0:y1, x0:x1] = np.minimum(out[y0:y1, x0:x1], float(z))
+    return out
+
+
+@pytest.mark.parametrize("model", sorted(LENS_PARAMS))
+@pytest.mark.parametrize("via", ["render_splats_depth", "ground_truth_creator"])
+def test_splats_follow_the_lens(model, via):
+    """Under a camera with a lens, each splat sits at ``cameras.project``'s
+    pixel and the points it marks invalid paint nothing (behind the camera,
+    beyond the radius cutoff): as a plain loop over the points, exactly; the
+    GroundTruthCreator's splat occlusion passes its camera through."""
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+    from dataset_pipeline_tpu_torch.tools import ground_truth_creator as gtc
+
+    rng = np.random.RandomState(9)
+    W, H, R, radius = 96, 72, 3, 0.05
+    cam = _camera(model, W, H, LENS_PARAMS[model])
+    n = 2500
+    xy = rng.uniform(-1.6, 1.6, (n, 2))
+    z = np.where(rng.rand(n) < 0.1, -rng.uniform(0.1, 0.3, n), rng.uniform(0.06, 4.0, n))
+    pts = torch.from_numpy(np.concatenate([xy * np.abs(z)[:, None], z[:, None]], 1)
+                           .astype(np.float32))
+    if via == "render_splats_depth":
+        radii = torch.full((n,), radius)
+        got = tsplat.render_splats_depth(pts[None], radii, cam, max_radius_px=R)[0]
+    else:
+        got = gtc.render_occlusion_depth(cam, SE3.identity(device="cpu"), pts, radius,
+                                         max_radius_px=R)
+    want = _splats_by_loop(cam, pts, radius, R)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert cam.lens
+    pinhole = tsplat.render_splats_depth(pts[None], torch.full((n,), radius),
+                                         dataclasses.replace(cam, lens=False),
+                                         max_radius_px=R)[0].numpy()
+    assert np.isfinite(want).mean() > 0.5 and (pinhole != want).mean() > 0.05
+
+
+@pytest.mark.parametrize("model,params,lens", [
+    ("PINHOLE", [80.0, 81.0, 47.5, 35.5], False),
+    ("OPENCV", [80.0, 81.0, 47.5, 35.5, 0.0, 0.0, 0.0, 0.0], False),
+    ("OPENCV", [80.0, 81.0, 47.5, 35.5, 0.0, 0.0, 1e-4, 0.0], True),
+    ("OPENCV_FISHEYE", [80.0, 81.0, 47.5, 35.5, 0.0, 0.0, 0.0, 0.0], True),
+    ("FOV", [80.0, 81.0, 47.5, 35.5, 0.0], True),
+])
+def test_the_lens_is_decided_when_the_camera_is_made(model, params, lens):
+    """``Camera.lens``: a pre-warp or the FOV model always, a polynomial
+    distortion where a coefficient is nonzero; new parameters keep it."""
+    cam = _camera(model, 96, 72, params)
+    assert cam.lens is lens
+    assert cam.with_params(cam.params * 1.5).lens is lens
 
 
 def test_zbuffer_min_aux_lowest_index_on_ties_matches_jax():
