@@ -177,7 +177,7 @@ import numpy as np
 
 ICP_KERNELS = ("gn_fused", "gn_fused_cost_batch", "moment_gram")
 REG_KERNELS = ("pyramid_sample_derivs", "pyramid_sample_value", "pyramid_pairs", "hb_geometry_project",
-               "hb_geometry_jacobian")
+               "hb_geometry_jacobian", "hb_gram")
 BENCH_KERNELS = ("gn_fused", "gn_fused_cost_batch", "moment_gram", "gn_rows", "moment_gram48", "moment_gram_thirds",
                  "moment_gram_repeat", "hbm_read_sum")
 PROBE_KERNELS = ("take_along_lanes", "take_along_sublanes", "take_rows", "advanced_2d",
@@ -195,6 +195,10 @@ B3_VALUE_TOL, B3_DERIV_TOL = 1e-4, 1e-3  # abs, kernel vs plain where ok
 # HB_PIX_ULPS float32 ulps of the projection's rounding, J within HB_J_RTOL of the entry plus a
 # thousandth of its column's largest
 HB_PIX_ULPS, HB_J_RTOL = 8, 1e-3
+# the H,b Gram kernel vs the plain _gram_assemble with J in float64 (tests/test_torch_cuda.py): H
+# within HB_GRAM_RTOL of sqrt(H_ii H_jj), b of its largest entry on that scale, the cost within
+# HB_GRAM_COST_RTOL
+HB_GRAM_RTOL, HB_GRAM_COST_RTOL = 1e-4, 1e-5
 # registrator scenes: the CPU parity test's tolerances (test_torch_image_registrator.py)
 REG_Q_TOL, REG_T_TOL, REG_PARAM_TOL, REG_COST_RTOL = 5e-7, 5e-7, 1e-3, 1e-4
 REG_MIN_MOTION = 20  # each scale run moves every pose by >= 20x REG_Q_TOL / REG_T_TOL
@@ -1553,10 +1557,11 @@ def check_b3_at_captured(torch, tps, cap: dict, label: str, flat_sampler=None):
 def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic, cio,
                          quat_to_matrix_np, root: str):
     """The DSLR configuration through the CLI at full resolution. The inputs
-    of the run's first derivs-mode B3 launch and of its first H,b geometry
-    kernel launch in ``jacobian`` mode are kept (the large ones on the host,
-    so that the peak device memory is the run's own) and returned. Every
-    geometry row of the run is the kernel's (the scene's camera is PINHOLE)."""
+    of the run's first derivs-mode B3 launch, of its first H,b geometry
+    kernel launch in ``jacobian`` mode and of its first Gram kernel call are
+    kept (the large ones on the host, so that the peak device memory is the
+    run's own) and returned. Every geometry row of the run is the kernel's
+    (the scene's camera is PINHOLE), and every Gram row."""
     from dataset_pipeline_tpu_torch.utils.timing import stages_text
 
     t0 = time.perf_counter()
@@ -1569,8 +1574,9 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
     before = pose_errors(os.path.join(root, "state"), tq, tt, cio, quat_to_matrix_np)
     out = os.path.join(root, "out")
     timings, stats = {}, {}
-    captured, geometry = {}, {}
+    captured, geometry, gram = {}, {}, {}
     sample, jacobian = optimizer.pyramid_sample, optimizer.hb_geometry.jacobian
+    gram_assemble = optimizer.hb_gram.gram_assemble
 
     def keep_first(flat, layout, pix, scale, with_derivs=True, **kw):
         if with_derivs and not captured:
@@ -1584,10 +1590,12 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
                             dvds=dvds.cpu(), optimize_intrinsics=oi, dynamic_scale=ds)
         return jacobian(camera, params, q, t, points, radius, dpx, dpy, dvds, oi, ds)
 
+    keep_gram = gram_keeper(gram, gram_assemble)
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     optimizer.pyramid_sample = keep_first  # for this run only
     optimizer.hb_geometry.jacobian = keep_geometry
+    optimizer.hb_gram.gram_assemble = keep_gram
     t0 = time.perf_counter()
     try:
         rc = image_registrator.main(registrator_args(
@@ -1599,11 +1607,13 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
     finally:
         optimizer.pyramid_sample = sample
         optimizer.hb_geometry.jacobian = jacobian
+        optimizer.hb_gram.gram_assemble = gram_assemble
     wall = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] for k in REG_KERNELS}
     if rc != 0:
         fail(f"image_registrator returned {rc}")
-    rows, kernel_rows = (timings.get(f"hb_accumulate.{k}", 0) for k in ("rows", "geometry_kernel_rows"))
+    rows, kernel_rows, gram_rows = (timings.get(f"hb_accumulate.{k}", 0)
+                                    for k in ("rows", "geometry_kernel_rows", "gram_kernel_rows"))
     after = pose_errors(os.path.join(out, "scale_1_state"), tq, tt, cio, quat_to_matrix_np)
     sc = stats["scales"][-1]
     tj = json.load(open(os.path.join(out, "timing.json")))
@@ -1618,9 +1628,11 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
           f"{sum(obs) / opt_s:.4g} observations/s; costs {sc['iteration_costs']} -> optimum "
           f"{sc['optimum_cost']:.6f}; pose error (mm at 5 m) mean {1e3 * before.mean():.3f} -> "
           f"{1e3 * after.mean():.3f}; launches {launches}; geometry rows by the kernel "
-          f"{kernel_rows} of {rows}")
+          f"{kernel_rows} of {rows}; Gram rows by the kernel {gram_rows}")
     if not 0 < kernel_rows == rows:
         fail(f"DSLR: the H,b geometry kernel computed {kernel_rows} of {rows} geometry rows")
+    if not 0 < gram_rows == rows:
+        fail(f"DSLR: the H,b Gram kernel computed {gram_rows} of {rows} rows")
     if sum(stats["levels"]) < DSLR_MIN_POINTS:
         fail(f"DSLR: {sum(stats['levels'])} points survive < {DSLR_MIN_POINTS}")
     if min(obs) < DSLR_MIN_OBS:
@@ -1634,7 +1646,23 @@ def run_registrator_dslr(torch, kernels, image_registrator, optimizer, synthetic
             fail(f"the registrator's main path never launched kernel {k}")
     if not captured:
         fail("DSLR: no derivs-mode B3 launch to keep the inputs of")
-    return launches, captured, (tq, tt), geometry
+    if not gram:
+        fail("DSLR: no Gram kernel call to keep the inputs of")
+    return launches, captured, (tq, tt), geometry, gram
+
+
+def gram_keeper(kept: dict, gram_assemble):
+    """``ops/hb_gram.py:gram_assemble`` keeping its first call's inputs in
+    ``kept``, all on the host, so that the peak device memory is the run's
+    own."""
+
+    def keep(J, inten, ok, neighbors, desc, contrib):
+        if not kept:
+            kept.update(J=J.cpu(), inten=inten.cpu(), ok=ok.cpu(), neighbors=neighbors.cpu(),
+                        desc=desc.cpu(), contrib=contrib.cpu())
+        return gram_assemble(J, inten, ok, neighbors, desc, contrib)
+
+    return keep
 
 
 def hb_pix_tolerance(torch, q, t, pts, f, lens: bool = False):
@@ -1661,7 +1689,8 @@ def run_registrator_lens(torch, kernels, optimizer, seed: int = 19):
     6048x4032, built by ``make_optimizer`` as the ImageRegistrator CLI
     builds it) from the seed's start state. Returns its launch counts and
     the inputs of its first H,b geometry ``jacobian`` launch (the large ones
-    on the host). Every geometry row is the kernel's."""
+    on the host) and of its first Gram kernel call. Every geometry row is the
+    kernel's, and every Gram row."""
     from perfbench import harness
     from perfbench.drivers.register_fisheye import build
     from perfbench.scene.dslr_fisheye import make_scene
@@ -1682,30 +1711,36 @@ def run_registrator_lens(torch, kernels, optimizer, seed: int = 19):
                             dvds=dvds.cpu(), optimize_intrinsics=oi, dynamic_scale=ds)
         return jacobian(camera, params, q, t, points, radius, dpx, dpy, dvds, oi, ds)
 
+    gram, gram_assemble = {}, optimizer.hb_gram.gram_assemble
     timings = {}
     opt.timings = timings
     opt.current_scale = 0
     kernels.reset_launch_counts()
     optimizer.hb_geometry.jacobian = keep_geometry  # for this run only
+    optimizer.hb_gram.gram_assemble = gram_keeper(gram, gram_assemble)
     t0 = time.perf_counter()
     try:
         opt.run_on_current_scale(max_iterations=1)
         torch.cuda.synchronize()
     finally:
         optimizer.hb_geometry.jacobian = jacobian
+        optimizer.hb_gram.gram_assemble = gram_assemble
     wall = time.perf_counter() - t0
     launches = {k: kernels.LAUNCHES[k] for k in REG_KERNELS}
-    rows, kernel_rows = (timings.get(f"hb_accumulate.{k}", 0) for k in ("rows", "geometry_kernel_rows"))
+    rows, kernel_rows, gram_rows = (timings.get(f"hb_accumulate.{k}", 0)
+                                    for k in ("rows", "geometry_kernel_rows", "gram_kernel_rows"))
     W, H = cfg["scene"]["image_size"]
     print(f"fisheye registrator (THIN_PRISM_FISHEYE, {W}x{H}, seed {seed}): set-up {set_up:.1f} s, "
           f"one LM iteration with its refresh and final cost {wall:.3f} s; launches {launches}; "
-          f"geometry rows by the kernel {kernel_rows} of {rows}")
+          f"geometry rows by the kernel {kernel_rows} of {rows}; Gram rows by the kernel {gram_rows}")
     if not 0 < kernel_rows == rows:
         fail(f"fisheye registrator: the H,b geometry kernel computed {kernel_rows} of {rows} rows")
-    if not geometry:
-        fail("fisheye registrator: no H,b geometry jacobian launch to keep the inputs of")
+    if not 0 < gram_rows == rows:
+        fail(f"fisheye registrator: the H,b Gram kernel computed {gram_rows} of {rows} rows")
+    if not geometry or not gram:
+        fail("fisheye registrator: no H,b geometry jacobian launch or Gram call to keep the inputs of")
     del opt
-    return launches, geometry
+    return launches, geometry, gram
 
 
 def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
@@ -1787,6 +1822,59 @@ def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
     if not (pix_err <= 1.0 and J_err <= 1.0 and finite):
         fail(f"H,b geometry at {label}: the kernel is off the plain version (pix {pix_err:.3f}, J "
              f"{J_err:.3f} of their tolerances, J finite {finite})")
+    return res
+
+
+def check_hb_gram(torch, optimizer, cap: dict, label: str):
+    """The H,b Gram kernel (``ops/hb_gram.py``) at ``cap``'s inputs (brought
+    back to the card) against the plain ``_gram_assemble`` with J in
+    float64, image by image (``hb_gram.oracle``): the count equal, H within
+    HB_GRAM_RTOL of sqrt(H_ii H_jj), b within HB_GRAM_RTOL of its largest
+    entry on that scale, the cost within HB_GRAM_COST_RTOL
+    (``hb_gram.gaps``, as the card tests measure them); two launches
+    bit-equal. CUDA-event times beside the bound from the launch's inputs
+    alone: bytes, every row's intensity, validity and contribution flag
+    (6 B), the neighbour lists and descriptors (12 B a neighbour, once per
+    point when the images share them) and J's row of each residual row
+    (4 V B); operations, (V^2 + 5 V) per neighbour of a residual row (the
+    upper triangle and b as FMAs, D and w D). And the plain version's time
+    in float32."""
+    hg = optimizer.hb_gram
+    J, inten, ok, nbr, desc, contrib = (cap[k].cuda() for k in ("J", "inten", "ok", "neighbors",
+                                                                "desc", "contrib"))
+    nb, M, V = J.shape
+    K = nbr.shape[-1]
+
+    def kernel():
+        return hg.gram_assemble(J, inten, ok, nbr, desc, contrib)
+
+    def plain():
+        return optimizer._gram_assemble(J, inten, ok, nbr, desc, contrib)
+
+    out = [x.clone() for x in kernel()]
+    if not all(torch.equal(a, b) for a, b in zip(out, kernel())):
+        fail(f"H,b Gram at {label}: two identical launches disagree")
+    ref = hg.oracle(J, inten, ok, nbr, desc, contrib)
+    H_gap, b_gap, cost_gap = hg.gaps(out, ref)
+    nr = ref[3]
+    del ref
+    n_res = int(out[3])
+    point_rows = M if nbr.dim() == 2 else nb * M
+    res = {"images": nb, "points": M, "rows": nb * M, "residual_rows": n_res, "V": V, "K": K,
+           "H_gap": H_gap, "b_gap": b_gap, "cost_gap": cost_gap, "count_equal": n_res == nr,
+           "library_ms": None}
+    torch.cuda.empty_cache()
+    res.update(kernel_ms(kernel, torch),
+               **bound(6 * nb * M + 12 * K * point_rows + 4 * V * n_res, K * n_res * (V * V + 5 * V)))
+    res["plain_ms"] = cuda_ms(plain, torch, warmup=1, reps=3)
+    print(f"H,b Gram kernel at {label} ({nb} images x {M} points, V = {V}, K = {K}, {n_res} residual "
+          f"rows): H_gap {H_gap:.3e}, b_gap {b_gap:.3e}, cost_gap {cost_gap:.3e}, count equal "
+          f"{n_res == nr}; {res['ms']:.4f} ms (one launch {res['ms_one_launch']:.4f}, bound "
+          f"{res['bound_ms']:.4f} by {res['bound_by']}); the plain version {res['plain_ms']:.2f} ms")
+    if not (n_res == nr and H_gap <= HB_GRAM_RTOL and b_gap <= HB_GRAM_RTOL
+            and cost_gap <= HB_GRAM_COST_RTOL):
+        fail(f"H,b Gram at {label}: the kernel is off the plain version (count {n_res} / {nr}, H_gap "
+             f"{H_gap:.3e}, b_gap {b_gap:.3e}, cost_gap {cost_gap:.3e})")
     return res
 
 
@@ -3852,7 +3940,7 @@ def main(argv=None) -> int:
         check_registrator_small(torch, image_registrator, synthetic.write_scene, cio,
                                 os.path.join(root, "small"))
         print(f"small registrator scene: {time.perf_counter() - t0:.1f} s")
-        reg, dslr_b3, truth, dslr_geometry = run_registrator_dslr(
+        reg, dslr_b3, truth, dslr_geometry, dslr_gram = run_registrator_dslr(
             torch, kernels, image_registrator, optimizer, synthetic, cio, quat_to_matrix_np,
             os.path.join(root, "dslr"))
         torch.cuda.empty_cache()
@@ -3860,12 +3948,19 @@ def main(argv=None) -> int:
                                     "the DSLR run's first jacobian launch")
         del dslr_geometry
         torch.cuda.empty_cache()
-        reg_lens, lens_geometry = run_registrator_lens(torch, kernels, optimizer)
+        hb_gram = check_hb_gram(torch, optimizer, dslr_gram, "the DSLR run's first Gram call")
+        del dslr_gram
+        torch.cuda.empty_cache()
+        reg_lens, lens_geometry, lens_gram = run_registrator_lens(torch, kernels, optimizer)
         torch.cuda.empty_cache()
         hb_geom["thin_prism_fisheye"] = check_hb_geometry(
             torch, optimizer.hb_geometry, optimizer, lens_geometry,
             "the fisheye cell's first jacobian launch")
         del lens_geometry
+        torch.cuda.empty_cache()
+        hb_gram["thin_prism_fisheye"] = check_hb_gram(torch, optimizer, lens_gram,
+                                                      "the fisheye cell's first Gram call")
+        del lens_gram
         torch.cuda.empty_cache()
 
         # ground truth and rendering: no hand-written kernel on this path
@@ -3975,7 +4070,7 @@ def main(argv=None) -> int:
                                    "slice4_inputs": b3_slice4, "joint_ba_inputs": b3_slice5,
                                    "slice7_inputs": b3_slice7, "bench_inputs": b3_bench},
                 "gn_rows": b4a,
-                "hbm_read_sum": b5b, **variants, **probes, "hb_geometry": hb_geom}
+                "hbm_read_sum": b5b, **variants, **probes, "hb_geometry": hb_geom, "hb_gram": hb_gram}
     report = []
     for kname, k in kernels.KERNELS.items():
         paths = {p: {c: counts[c] for c in k.counters if c in counts} for p, counts in by_path.items()}

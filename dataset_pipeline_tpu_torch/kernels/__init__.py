@@ -115,6 +115,11 @@ KERNELS = {
         ("hb_geometry_project", "hb_geometry_jacobian"),
         {"dpt_hb_geometry_jacobian": [_P, _P, _P, _I, _P, _I, _L, _I, _P, _P, _P, _F, _I, _I, _P,
                                       _P]}),
+    "hb_gram": Kernel(  # ops/hb_gram.py:gram_assemble
+        "dpt_hb_gram", [_P, _I, _P, _P, _P, _I, _P, _I, _P, _L, _I, _I, _I, _F, _F, _P, _P, _P, _P,
+                        _P, _P],
+        "hb_gram.cu", "dataset_pipeline_tpu/photometric/optimizer.py:395", ("hb_gram",),
+        {"dpt_hb_gram_grid": [_I], "dpt_hb_gram_record": [_I]}),
 }
 
 # kernel launches per wrapper variant (never the plain versions): a run

@@ -16,7 +16,9 @@ the observations cache (per-image compacted views of the point levels).
   observation (``ops/pyramid_sample.py``, the CUDA kernel on the card) chained
   with forward-mode derivatives (``torch.func.jvp`` over the variables) of the
   gather-free projection and footprint-scale math; ``_hb_batch``'s geometry
-  runs in one CUDA kernel on the card (``ops/hb_geometry.py``).
+  runs in one CUDA kernel on the card (``ops/hb_geometry.py``), and the
+  residuals and Gram products of ``_hb_batch`` and ``_hb_rig_batch`` in
+  another (``ops/hb_gram.py``).
 - **LM**: H diagonal *= (1+lambda), accept if the cost decreases with frozen
   visibility, lambda halve/double, 10 tries, force-apply the last try.
   Variables: the intrinsics blocks first, then 6 dof per rig camera other
@@ -44,7 +46,7 @@ import torch
 
 from dataset_pipeline_tpu_torch.models import cameras as cm
 from dataset_pipeline_tpu_torch.models.lie import SE3
-from dataset_pipeline_tpu_torch.ops import hb_geometry
+from dataset_pipeline_tpu_torch.ops import hb_geometry, hb_gram
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import (
     PyramidLayout,
     flatten_pyramid,
@@ -414,6 +416,19 @@ def _hb_spans(timings, device):
             lambda: span(timings, "hb_accumulate.gram", device, host=True))
 
 
+def _gram_dispatch(J, inten, ok, neighbors, desc, contrib, gram, timings):
+    """``_gram_assemble``'s result inside the ``gram`` span: on the card by
+    the kernel ``csrc/hb_gram.cu`` (``ops/hb_gram.py``, which raises for J it
+    cannot take), counting ``hb_accumulate.gram_kernel_rows`` (nb x M); for
+    CPU tensors by the plain body."""
+    kernel = hb_gram.uses_kernel(J)
+    if kernel:
+        count(timings, "hb_accumulate.gram_kernel_rows", J.shape[0] * J.shape[1])
+    with gram():
+        return (hb_gram.gram_assemble if kernel else _gram_assemble)(J, inten, ok, neighbors, desc,
+                                                                     contrib)
+
+
 def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, layout,
               obs_scale, contrib, radius, optimize_intrinsics: bool, dynamic_scale: bool,
               pairs=None, *, timings=None):
@@ -423,10 +438,11 @@ def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, lay
     One sample with analytic derivatives per observation (dI/dpix, dI/dscale)
     chained with forward-mode Jacobians of the gather-free projection and
     footprint math: the kernel ``csrc/hb_geometry.cu`` (``ops/hb_geometry.py``)
-    on the card for the models it implements, else ``torch.func.jvp``.
-    ``timings``, if given, collects the child spans of ``hb_accumulate`` and
-    counts ``hb_accumulate.geometry_kernel_rows``, the rows whose geometry
-    the kernel computed."""
+    on the card for the models it implements, else ``torch.func.jvp``; the
+    residuals and Gram products by ``_gram_dispatch``. ``timings``, if given,
+    collects the child spans of ``hb_accumulate`` and counts
+    ``hb_accumulate.geometry_kernel_rows`` and ``.gram_kernel_rows``, the
+    rows whose geometry or Gram products the kernels computed."""
     geometry, sample, gram = _hb_spans(timings, points.device)
     kernel = hb_geometry.uses_kernel(camera, points)
     project, jacobian = ((hb_geometry.project, hb_geometry.jacobian) if kernel
@@ -442,8 +458,7 @@ def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, lay
                      optimize_intrinsics, dynamic_scale)  # (nb, M, V)
     if kernel:
         count(timings, "hb_accumulate.geometry_kernel_rows", pix.shape[0] * pix.shape[1])
-    with gram():
-        return _gram_assemble(J, inten, valid & okS, neighbors, desc, contrib)
+    return _gram_dispatch(J, inten, valid & okS, neighbors, desc, contrib, gram, timings)
 
 
 def _hb_rig_batch(camera, params, extr_q, extr_t, ref_q, ref_t, points, neighbors, desc, flat,
@@ -474,8 +489,7 @@ def _hb_rig_batch(camera, params, extr_q, extr_t, ref_q, ref_t, points, neighbor
                               _basis(P, 12, optimize_intrinsics, z6.device),
                               _intensity_chain(dpx, dpy, dvds, dynamic_scale),
                               pix.shape[0] * pix.shape[1])
-    with gram():
-        return _gram_assemble(J, inten, valid & okS, neighbors, desc, contrib)
+    return _gram_dispatch(J, inten, valid & okS, neighbors, desc, contrib, gram, timings)
 
 
 def _inverse_depths(D, z):

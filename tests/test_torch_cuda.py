@@ -1207,7 +1207,9 @@ def test_hb_batch_on_the_card_matches_cpu(cuda_device, model, per_image):
     counts, H and b within 1e-4 of their largest entry, the cost 1e-4 (the
     limits of the bench's photometric_hb test). The kernel models count one
     launch of each mode and ``geometry_kernel_rows`` nb x M; OPENCV takes the
-    jvp on the card: no launch, no count."""
+    jvp on the card: no launch, no count. Every model's residuals and Gram
+    products take the Gram kernel on the card: one ``hb_gram`` launch and
+    ``gram_kernel_rows`` nb x M."""
     from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
     from dataset_pipeline_tpu_torch.utils.timing import stage
 
@@ -1220,16 +1222,116 @@ def test_hb_batch_on_the_card_matches_cpu(cuda_device, model, per_image):
             res = tpo._hb_batch(*args, True, True, timings=t)
             out[dev.type] = [x.double().cpu().numpy() for x in res]
         counts[dev.type] = (t.get("hb_accumulate.geometry_kernel_rows"),
+                            t.get("hb_accumulate.gram_kernel_rows"),
                             {k: gn.LAUNCHES[k] - n0[k] for k in n0 if gn.LAUNCHES[k] != n0[k]})
     nb, M = args[2].shape[0], args[4].shape[-2]
     if model == "OPENCV":
-        assert counts["cuda"] == (None, {"pyramid_pairs": 1, "pyramid_sample_derivs": 1})
+        assert counts["cuda"] == (None, nb * M, {"pyramid_pairs": 1, "pyramid_sample_derivs": 1,
+                                                 "hb_gram": 1})
     else:
-        assert counts["cuda"] == (nb * M, {"pyramid_pairs": 1, "pyramid_sample_derivs": 1,
-                                           "hb_geometry_project": 1, "hb_geometry_jacobian": 1})
-    assert counts["cpu"] == (None, {})
+        assert counts["cuda"] == (nb * M, nb * M, {"pyramid_pairs": 1, "pyramid_sample_derivs": 1,
+                                                   "hb_geometry_project": 1,
+                                                   "hb_geometry_jacobian": 1, "hb_gram": 1})
+    assert counts["cpu"] == (None, None, {})
     got, want = out["cuda"], out["cpu"]
     assert int(got[3]) == int(want[3]) > nb * M // 2
     for a, b in zip(got[:2], want[:2]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
     np.testing.assert_allclose(got[2], want[2], rtol=BENCH_COST_RTOL)
+
+
+def _gram_chunk(device, nb, M, V, K=5, per_image=False, seed=3):
+    """Inputs of ``_gram_assemble`` at a registrator chunk's shape: J
+    (nb, M, V) at random with NaN in the 5 % of rows that are invalid,
+    intensities about 100, descriptors that make about half the residual
+    norms Huber inliers, neighbours among the 64 rows around each point (as a
+    level's, drawn from a point's surroundings), 2 % of the rows not
+    contributing."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    J = torch.randn((nb, M, V), generator=g, device=device)
+    ok = torch.rand((nb, M), generator=g, device=device) > 0.05
+    J[~ok] = float("nan")
+    inten = 100.0 + 20.0 * torch.randn((nb, M), generator=g, device=device)
+    shape = (nb, M, K) if per_image else (M, K)
+    near = torch.randint(-32, 33, shape, generator=g, device=device)
+    rows = torch.arange(M, device=device).view((1,) * (len(shape) - 2) + (M, 1))
+    nbr = (rows + near).clamp(0, M - 1)
+    desc = 5.0 * torch.randn(shape, generator=g, device=device)
+    contrib = torch.rand((nb, M), generator=g, device=device) > 0.02
+    return J, inten, ok, nbr, desc, contrib
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,M,V,per_image", [(8, 1_579_653, 10, False), (8, 6_317_932, 18, False),
+                                              (3, 40_000, 6, True), (3, 40_000, 16, True),
+                                              (4, 400_000, 24, False), (3, 40_000, 20, True)])
+def test_hb_gram_kernel_matches_plain(cuda_device, nb, M, V, per_image):
+    """The Gram kernel against ``_gram_assemble`` with J in float64, image by
+    image (``hb_gram.oracle``), at the DSLR chunk's shape (8 images x level
+    0's 1,579,653 points, PINHOLE with intrinsics: V = 10), at the fisheye
+    chunk's (6,317,932 points, THIN_PRISM_FISHEYE with intrinsics: V = 18),
+    at a rig's widest rows (12 intrinsics and 6 + 6 pose dofs: V = 24), and
+    with per-image neighbours at V = 6, 16 and 20: the count equal, H within
+    1e-4 of sqrt(H_ii H_jj) (the registrator's ``close_gram`` limit), b
+    within 1e-4 of its largest entry on that scale, the cost within 1e-5
+    (``hb_gram.gaps``); invalid rows hold NaN in J and H stays finite. One
+    launch, counted."""
+    from dataset_pipeline_tpu_torch.ops import hb_gram
+
+    J, inten, ok, nbr, desc, contrib = _gram_chunk(cuda_device, nb, M, V, per_image=per_image)
+    assert hb_gram.uses_kernel(J)
+    n0 = dict(gn.LAUNCHES)
+    out = hb_gram.gram_assemble(J, inten, ok, nbr, desc, contrib)
+    assert gn.LAUNCHES == {**n0, "hb_gram": n0["hb_gram"] + 1}
+    assert out[0].shape == (nb, V, V) and out[1].shape == (nb, V)
+    assert out[2].dtype == torch.float32 and out[3].dtype == torch.int64
+    ref = hb_gram.oracle(J, inten, ok, nbr, desc, contrib)
+    assert int(out[3]) == ref[3] > 0.5 * nb * M
+    assert bool(torch.isfinite(out[0]).all() and torch.isfinite(out[1]).all())
+    assert torch.equal(out[0], out[0].mT)
+    H_gap, b_gap, cost_gap = hb_gram.gaps(out, ref)
+    assert H_gap < 1e-4 and b_gap < 1e-4 and cost_gap < 1e-5, (H_gap, b_gap, cost_gap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,V", [("OPENCV", 20), ("THIN_PRISM_FISHEYE", 24)])
+def test_hb_rig_batch_on_the_card_takes_the_gram_kernel(cuda_device, model, V):
+    """``_hb_rig_batch`` with intrinsics (P + 12 variables: 20 under
+    OPENCV, 24 under THIN_PRISM_FISHEYE) on the card: one ``hb_gram``
+    launch, ``gram_kernel_rows`` nb x M, and H, b, cost and count as on the
+    CPU within the limits of ``test_hb_batch_on_the_card_matches_cpu``."""
+    from dataset_pipeline_tpu_torch.models.lie import SE3
+    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
+    from dataset_pipeline_tpu_torch.utils.timing import stage
+
+    out, counts = {}, {}
+    for dev in (cuda_device, torch.device("cpu")):
+        cam, params, q, t, *rest = _hb_batch_inputs(dev, model, False)
+        extr = SE3.exp(torch.tensor([0.01, -0.02, 0.005, 0.002, 0.001, -0.003], device=dev))
+        n0 = dict(gn.LAUNCHES)
+        t_ = {}
+        with stage(t_, "hb_accumulate", dev):
+            res = tpo._hb_rig_batch(cam, params, extr.q, extr.t, q, t, *rest, True, True, timings=t_)
+        out[dev.type] = [x.double().cpu().numpy() for x in res]
+        counts[dev.type] = (t_.get("hb_accumulate.gram_kernel_rows"),
+                            gn.LAUNCHES["hb_gram"] - n0["hb_gram"])
+    nb, M = q.shape[0], rest[0].shape[-2]
+    assert counts == {"cuda": (nb * M, 1), "cpu": (None, 0)}
+    got, want = out["cuda"], out["cpu"]
+    assert got[0].shape == (nb, V, V) and int(got[3]) == int(want[3]) > nb * M // 2
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * np.abs(b).max())
+    np.testing.assert_allclose(got[2], want[2], rtol=BENCH_COST_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("V", [10, 18])
+def test_hb_gram_kernel_is_deterministic(cuda_device, V):
+    """Two launches on the same inputs give bit-equal H, b, cost and count:
+    no float atomics, the records summed in a fixed order."""
+    from dataset_pipeline_tpu_torch.ops import hb_gram
+
+    args = _gram_chunk(cuda_device, 8, 400_000, V, seed=V)
+    first = [x.clone() for x in hb_gram.gram_assemble(*args)]
+    for a, b in zip(first, hb_gram.gram_assemble(*args)):
+        assert torch.equal(a, b)

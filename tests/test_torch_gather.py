@@ -268,6 +268,6 @@ def test_cpu_calls_count_no_launch():
     assert kernels.LAUNCHES == before
     assert {"take_along_lanes", "take_along_sublanes", "take_rows", "advanced_2d", "tile_gather",
             "row_extract", "row_extract_packed"} <= set(kernels.LAUNCHES)
-    assert len(kernels.KERNELS) == 16
+    assert len(kernels.KERNELS) == 17
     for name in ("take_along_lanes", "take_along_sublanes", "take_rows", "advanced_2d"):
         assert kernels.KERNELS[name].source == "gather_probes.cu"

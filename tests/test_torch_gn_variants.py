@@ -241,7 +241,7 @@ def test_kernel_table_names_sources_and_the_kernels_replaced():
     """One table drives the bindings, the counters and the smoke's report:
     every row's source exists, its ``replaces`` points at a ``def`` of the
     JAX kernel, and the counters are exactly the rows' counters."""
-    assert len(kernels.KERNELS) == 16
+    assert len(kernels.KERNELS) == 17
     counters = [c for k in kernels.KERNELS.values() for c in k.counters]
     assert sorted(counters) == sorted(kernels.LAUNCHES) and len(set(counters)) == len(counters)
     for name, k in kernels.KERNELS.items():

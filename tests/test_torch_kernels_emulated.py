@@ -830,3 +830,152 @@ def test_hb_geometry_entry_points_reject_bad_arguments(emu):
     assert emu.dpt_hb_geometry_jacobian(d, d, d, 0, *args) != 0
     assert emu.dpt_hb_geometry_jacobian(d, d, d, 0, d, 0, 0, 1, d, d, d, 0.01, 1, 1, d,
                                         None) == 0  # nothing to do
+
+
+# ---------------------------------------------------------------------------
+# The H,b residuals and Gram products kernel (csrc/hb_gram.cu)
+# ---------------------------------------------------------------------------
+
+
+def _gram_inputs(V, K, nbr_per_image, desc_per_image, skipped_tile, nb=2, M=700, seed=11):
+    """Rows of 2 images x 700 points (two full tiles of 256 and a partial
+    one): intensities about 100 and descriptors that make about half the
+    residual norms Huber inliers; 15 % of the rows invalid with NaN in their
+    J (so rows whose neighbour is invalid abound), 10 % not contributing;
+    ``skipped_tile`` makes every row of image 0's second tile invalid."""
+    rng = np.random.RandomState(seed + V + K)
+    J = rng.randn(nb, M, V).astype(np.float32)
+    inten = (100.0 + 20.0 * rng.randn(nb, M)).astype(np.float32)
+    ok = rng.rand(nb, M) > 0.15
+    if skipped_tile:
+        ok[0, 256:512] = False
+    J[~ok] = np.nan
+    nshape = (nb, M, K) if nbr_per_image else (M, K)
+    nbr = rng.randint(0, M, nshape).astype(np.int64)
+    desc = (5.0 * rng.randn(*((nb, M, K) if desc_per_image else (M, K)))).astype(np.float32)
+    contrib = rng.rand(nb, M) > 0.1
+    return [torch.from_numpy(x) for x in (J, inten, ok, nbr, desc, contrib)]
+
+
+def _gram_emulated(emu, J, inten, ok, nbr, desc, contrib, blocks_per_image):
+    from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_COLOR_HUBER
+
+    nb, M, V = J.shape
+    K = nbr.shape[-1]
+    rec = emu.dpt_hb_gram_record(V)
+    partial = torch.full((nb * blocks_per_image * rec,), float("nan"), dtype=torch.float64)
+    H = torch.full((nb, V, V), float("nan"))
+    b = torch.full((nb, V), float("nan"))
+    cost = torch.full((1,), float("nan"))
+    count = torch.full((1,), -1, dtype=torch.int64)
+    assert emu.dpt_hb_gram(J.data_ptr(), V, inten.data_ptr(), ok.data_ptr(), nbr.data_ptr(),
+                           int(nbr.dim() == 3), desc.data_ptr(), int(desc.dim() == 3),
+                           contrib.data_ptr(), M, nb, K, blocks_per_image, DEFAULT_COLOR_HUBER,
+                           0.5 * DEFAULT_COLOR_HUBER, partial.data_ptr(), H.data_ptr(),
+                           b.data_ptr(), cost.data_ptr(), count.data_ptr(), None) == 0
+    return H, b, cost[0], count[0]
+
+
+_GRAM_CASES = [  # (V, K, neighbours per image, desc per image, a skipped tile, blocks per image)
+    (6, 4, False, False, False, 1), (10, 5, False, False, True, 2), (18, 5, False, False, False, 3),
+    (6, 5, True, True, True, 2), (10, 4, True, True, False, 1), (18, 4, True, True, True, 2),
+    (10, 5, True, False, False, 3), (9, 5, False, True, False, 2), (16, 4, True, True, False, 1),
+    (24, 5, False, False, True, 2), (24, 4, True, True, False, 3), (20, 5, True, False, False, 1),
+]
+
+
+def _gram_jax(J, inten, ok, nbr, desc, contrib):
+    """JAX's ``_gram_assemble`` (the function the kernel replaces), image
+    by image on float64 J: H, b stacked, cost and count summed."""
+    import jax
+    import jax.numpy as jnp
+
+    from dataset_pipeline_tpu.photometric import optimizer as jopt
+
+    parts = []
+    with jax.enable_x64(True):
+        for i in range(J.shape[0]):
+            one = [x[i] if x.dim() == 3 else x for x in (nbr, desc)]
+            parts.append([np.asarray(o) for o in jopt._gram_assemble(
+                jnp.asarray(J[i].double().numpy()), *(jnp.asarray(x.numpy()) for x in (
+                    inten[i], ok[i], *one, contrib[i])))])
+    return (torch.from_numpy(np.stack([p[0] for p in parts])),
+            torch.from_numpy(np.stack([p[1] for p in parts])),
+            sum(float(p[2]) for p in parts), sum(int(p[3]) for p in parts))
+
+
+@pytest.mark.parametrize("V,K,nbr_per_image,desc_per_image,skipped_tile,blocks", _GRAM_CASES)
+def test_hb_gram_kernel_emulated(emu, V, K, nbr_per_image, desc_per_image, skipped_tile, blocks):
+    """H, b, cost and count against the port's ``_gram_assemble`` and
+    against JAX's (``KERNELS['hb_gram'].replaces``), each with J in float64:
+    the count equal, H within 1e-5 of sqrt(H_ii H_jj) and exactly symmetric,
+    b within 1e-5 of sqrt(H_ii S) (S = sum w r^2, a bound of |b_i|), the
+    cost within 1e-5. Rows that are invalid hold NaN in J and must not
+    poison H; rows with an invalid neighbour or not contributing add
+    nothing; a tile with no valid row is skipped. V = 9, 16 and 20 run in
+    the next width up with zero columns; 24 is a rig's width under a model
+    of 12 intrinsics; blocks per image 1 to 3 take the records' fixed-order
+    sum."""
+    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
+
+    J, inten, ok, nbr, desc, contrib = _gram_inputs(V, K, nbr_per_image, desc_per_image,
+                                                    skipped_tile)
+    H, b, cost, n = _gram_emulated(emu, J, inten, ok, nbr, desc, contrib, blocks)
+    Hp, bp, cp, n_p = tpo._gram_assemble(J.double(), inten, ok, nbr, desc, contrib)
+    all_ok = ok & tpo._nbr_inten_ok(inten, ok, nbr)[1].all(-1) & contrib
+    assert int(n) == int(n_p) == int(all_ok.sum()) and 0.1 < float(all_ok.float().mean()) < 0.6
+    if skipped_tile:
+        assert not bool(all_ok[0, 256:512].any())
+    assert bool(torch.isfinite(H).all() and torch.isfinite(b).all()) and torch.equal(H, H.mT)
+    d = torch.diagonal(Hp, dim1=1, dim2=2)
+    assert bool((d > 0).all())
+    H_gap = ((H.double() - Hp).abs() / torch.sqrt(d[:, :, None] * d[:, None, :])).max()
+    # S per image from the plain version's residuals: b_i <= sqrt(H_ii S) by Cauchy-Schwarz
+    nbr_inten, _ = tpo._nbr_inten_ok(inten, ok, nbr)
+    r = torch.where(all_ok[..., None], (nbr_inten - inten[..., None]) - desc, torch.zeros(()))
+    norm = torch.sqrt(torch.clamp((r.double() ** 2).sum(-1), min=1e-20))
+    w = torch.where(all_ok, tpo.huber_weight(norm, tpo.DEFAULT_COLOR_HUBER), torch.zeros(()))
+    S = (w * norm ** 2).sum(1)
+    b_gap = ((b.double() - bp).abs() / torch.sqrt(d * S[:, None])).max()
+    assert float(H_gap) < 1e-5 and float(b_gap) < 1e-5, (float(H_gap), float(b_gap))
+    assert 0.3 < float((norm[all_ok] <= tpo.DEFAULT_COLOR_HUBER).double().mean()) < 0.9
+    np.testing.assert_allclose(float(cost), float(cp), rtol=1e-5)
+    Hj, bj, cj, nj = _gram_jax(J, inten, ok, nbr, desc, contrib)
+    assert nj == int(n)
+    H_gap = ((H.double() - Hj.double()).abs() / torch.sqrt(d[:, :, None] * d[:, None, :])).max()
+    b_gap = ((b.double() - bj.double()).abs() / torch.sqrt(d * S[:, None])).max()
+    assert float(H_gap) < 1e-5 and float(b_gap) < 1e-5, (float(H_gap), float(b_gap))
+    np.testing.assert_allclose(float(cost), cj, rtol=1e-5)
+
+
+def test_hb_gram_kernel_emulated_is_deterministic_and_takes_no_rows(emu):
+    """Two launches on the same inputs give the same bits; with M = 0 the
+    outputs are zero."""
+    args = _gram_inputs(10, 5, False, False, False)
+    first = _gram_emulated(emu, *args, 2)
+    for a, c in zip(first, _gram_emulated(emu, *args, 2)):
+        assert torch.equal(a, c)
+    empty = [x[:, :0] if x.dim() > 1 and x.shape[0] == 2 else x[:0] for x in args]
+    H, b, cost, n = _gram_emulated(emu, *empty, 1)
+    assert H.shape == (2, 10, 10) and not bool(H.any() or b.any()) and float(cost) == 0 and int(n) == 0
+
+
+def test_hb_gram_entry_points_reject_bad_arguments(emu):
+    z = torch.zeros(64)
+    d = z.data_ptr()
+    good = dict(V=10, M=4, nb=1, K=5, G=1)
+
+    def call(**kw):
+        a = dict(good, **kw)
+        return emu.dpt_hb_gram(d, a["V"], d, d, d, 0, d, 0, d, a["M"], a["nb"], a["K"], a["G"],
+                               47.4, 23.7, d, d, d, d, d, None)
+
+    for bad in (dict(V=0), dict(V=25), dict(nb=0), dict(K=0), dict(M=-1), dict(G=0),
+                dict(G=65536), dict(M=2**31 // 10 + 1), dict(V=24, M=2**31 // 24 + 1),
+                dict(M=2**31 // 40 + 1, K=40)):
+        assert call(**bad) != 0, bad
+    assert emu.dpt_hb_gram_record(25) == 0 and emu.dpt_hb_gram_record(0) == 0
+    assert emu.dpt_hb_gram_grid(25) == 0 and emu.dpt_hb_gram_grid(10) == 2  # 2 SMs x 1
+    assert emu.dpt_hb_gram_grid(24) == 2
+    assert emu.dpt_hb_gram_record(6) < emu.dpt_hb_gram_record(9) == emu.dpt_hb_gram_record(10)
+    assert emu.dpt_hb_gram_record(18) < emu.dpt_hb_gram_record(19) == emu.dpt_hb_gram_record(24)
