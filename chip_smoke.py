@@ -1743,7 +1743,7 @@ def run_registrator_lens(torch, kernels, optimizer, seed: int = 19):
     return launches, geometry, gram
 
 
-def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
+def check_hb_geometry(torch, hg, cap: dict, label: str):
     """The H,b geometry kernel's two modes at ``cap``'s inputs against the
     plain version (``torch.func.jvp`` under ``vmap``): valid equal, pix
     within the projection's float32 rounding, J within HB_J_RTOL on valid
@@ -1768,14 +1768,14 @@ def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
         return hg.jacobian(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
 
     def plain():
-        pix, _ = optimizer._project_plain(cam, params, q, t, pts)
-        return pix, optimizer._jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
+        pix, _ = hg.project_plain(cam, params, q, t, pts)
+        return pix, hg.jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
 
     pix, valid = project()
     J = jacobian()
     if not (torch.equal(pix, project()[0]) and torch.equal(J, jacobian())):
         fail(f"H,b geometry at {label}: two identical launches disagree")
-    pix_p, valid_p = optimizer._project_plain(cam, params, q, t, pts)
+    pix_p, valid_p = hg.project_plain(cam, params, q, t, pts)
     if not torch.equal(valid, valid_p):
         fail(f"H,b geometry at {label}: valid differs from the plain version in "
              f"{int((valid != valid_p).sum())} rows")
@@ -1791,13 +1791,13 @@ def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
         J_p = torch.empty((nb, M, V), dtype=torch.float64, device=J.device)
         for a in range(0, M, HB_LENS_ORACLE_POINTS):
             sl = slice(a, a + HB_LENS_ORACLE_POINTS)
-            J_p[:, sl] = optimizer._jacobian_plain(
+            J_p[:, sl] = hg.jacobian_plain(
                 c64, c64.params, q.double(), t.double(),
                 (pts[:, sl] if pts.dim() == 3 else pts[sl]).double(), r, dpx[:, sl].double(),
                 dpy[:, sl].double(), dvds[:, sl].double(), oi, ds)
         Jpv = J_p[valid_p]
     else:
-        J_p = optimizer._jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
+        J_p = hg.jacobian_plain(cam, params, q, t, pts, r, dpx, dpy, dvds, oi, ds)
         Jpv = J_p[valid_p].double()
     del J_p
     Jv = J[valid_p].double()
@@ -1827,7 +1827,7 @@ def check_hb_geometry(torch, hg, optimizer, cap: dict, label: str):
 
 def check_hb_gram(torch, optimizer, cap: dict, label: str):
     """The H,b Gram kernel (``ops/hb_gram.py``) at ``cap``'s inputs (brought
-    back to the card) against the plain ``_gram_assemble`` with J in
+    back to the card) against the plain ``gram_assemble_plain`` with J in
     float64, image by image (``hb_gram.oracle``): the count equal, H within
     HB_GRAM_RTOL of sqrt(H_ii H_jj), b within HB_GRAM_RTOL of its largest
     entry on that scale, the cost within HB_GRAM_COST_RTOL
@@ -1849,7 +1849,7 @@ def check_hb_gram(torch, optimizer, cap: dict, label: str):
         return hg.gram_assemble(J, inten, ok, nbr, desc, contrib)
 
     def plain():
-        return optimizer._gram_assemble(J, inten, ok, nbr, desc, contrib)
+        return hg.gram_assemble_plain(J, inten, ok, nbr, desc, contrib)
 
     out = [x.clone() for x in kernel()]
     if not all(torch.equal(a, b) for a, b in zip(out, kernel())):
@@ -3944,7 +3944,7 @@ def main(argv=None) -> int:
             torch, kernels, image_registrator, optimizer, synthetic, cio, quat_to_matrix_np,
             os.path.join(root, "dslr"))
         torch.cuda.empty_cache()
-        hb_geom = check_hb_geometry(torch, optimizer.hb_geometry, optimizer, dslr_geometry,
+        hb_geom = check_hb_geometry(torch, optimizer.hb_geometry, dslr_geometry,
                                     "the DSLR run's first jacobian launch")
         del dslr_geometry
         torch.cuda.empty_cache()
@@ -3954,8 +3954,7 @@ def main(argv=None) -> int:
         reg_lens, lens_geometry, lens_gram = run_registrator_lens(torch, kernels, optimizer)
         torch.cuda.empty_cache()
         hb_geom["thin_prism_fisheye"] = check_hb_geometry(
-            torch, optimizer.hb_geometry, optimizer, lens_geometry,
-            "the fisheye cell's first jacobian launch")
+            torch, optimizer.hb_geometry, lens_geometry, "the fisheye cell's first jacobian launch")
         del lens_geometry
         torch.cuda.empty_cache()
         hb_gram["thin_prism_fisheye"] = check_hb_gram(torch, optimizer, lens_gram,

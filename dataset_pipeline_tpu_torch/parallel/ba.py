@@ -25,10 +25,10 @@ import numpy as np
 import torch
 
 from dataset_pipeline_tpu_torch.models.lie import SE3, quat_rotate
+from dataset_pipeline_tpu_torch.ops.hb_geometry import forward_jacobian, project_full
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import flatten_pyramid, pyramid_sample
 from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_COLOR_HUBER, huber_weight
 from dataset_pipeline_tpu_torch.parallel.mesh import as_mesh
-from dataset_pipeline_tpu_torch.photometric.optimizer import _forward_jacobian, _project_full
 
 
 def schur_eliminate_images(H, b, n_keep: int, num_images: int, lam=0.0):
@@ -106,7 +106,7 @@ def photometric_row_blocks(camera, params, pose_q, pose_t, points, scan_idx, nei
         pose = SE3.exp(eps_img).compose(pose0)
         corr = SE3.exp(eps_scan)
         pts = quat_rotate(corr.q[scan_idx], points) + corr.t[scan_idx]
-        return _project_full(camera, prm, pose.apply(pts))
+        return project_full(camera, prm, pose.apply(pts))
 
     z_img = torch.zeros(6, dtype=torch.float32, device=dev)
     z_scan = torch.zeros((S, 6), dtype=torch.float32, device=dev)
@@ -118,7 +118,7 @@ def photometric_row_blocks(camera, params, pose_q, pose_t, points, scan_idx, nei
 
     P = params.shape[0]
     basis = torch.eye(6 + 6 * S + P, dtype=torch.float32, device=dev)
-    J = _forward_jacobian(lambda a, b_, c: geom(a, b_, c)[0], (z_img, z_scan, params),
+    J = forward_jacobian(lambda a, b_, c: geom(a, b_, c)[0], (z_img, z_scan, params),
                           lambda t: (t[:6], t[6:6 + 6 * S].reshape(S, 6), t[6 + 6 * S:]), basis,
                           lambda dpix: dpx * dpix[..., 0] + dpy * dpix[..., 1], pix.shape[0])
     J_img, J_scan, J_int = J[:, :6], J[:, 6:6 + 6 * S], J[:, 6 + 6 * S:]

@@ -50,19 +50,18 @@ from dataset_pipeline_tpu_torch.models.lie import (
     quat_rotate_fused,
     quat_to_matrix_np,
 )
+from dataset_pipeline_tpu_torch.ops.hb_geometry import forward_jacobian, project_full
+from dataset_pipeline_tpu_torch.ops.hb_gram import (
+    descriptor_residuals,
+    gram,
+    gram_assemble_plain,
+    huber_terms,
+)
 from dataset_pipeline_tpu_torch.ops.knn import build_grid, nearest_neighbor
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import flatten_pyramid, pair_rows, pyramid_sample
-from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_COLOR_HUBER, huber_rho
 from dataset_pipeline_tpu_torch.ops.splat import render_splats_depth
 from dataset_pipeline_tpu_torch.parallel.ba import _cross
 from dataset_pipeline_tpu_torch.parallel.mesh import Mesh, as_mesh, padded_rows, shard_range
-from dataset_pipeline_tpu_torch.photometric.optimizer import (
-    _forward_jacobian,
-    _gram,
-    _gram_assemble,
-    _nbr_inten_ok,
-    _project_full,
-)
 from dataset_pipeline_tpu_torch.utils.timing import StageTimer
 
 
@@ -388,7 +387,7 @@ def _vis_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, curren
 def _intensity_derivs(cam, params, p_cam0, flat, layout, pairs, obs_scale):
     """(pix, valid, intensity, dI/dx, dI/dy, sample ok) of camera-frame
     points: one derivatives-mode sample per point."""
-    pix, valid = _project_full(cam, params, p_cam0)
+    pix, valid = project_full(cam, params, p_cam0)
     inten, dpx, dpy, _, okS = pyramid_sample(flat, layout, pix[None].contiguous(),
                                              obs_scale[None].contiguous(), with_derivs=True,
                                              pairs=pairs)
@@ -405,7 +404,7 @@ def _scan_rows(pack, cam, params, pose0: SE3, p_cam0, pts, si: int, dpx, dpy):
     with the left-multiplicative tangent d(exp(eps) p)/deps = [I | -[p]x],
     i.e. [dIdp, p x dIdp], in the point's scan slot."""
     n = pts.shape[0]
-    Jpix_pc = _forward_jacobian(lambda pc: _project_full(cam, params, pc)[0], (p_cam0,),
+    Jpix_pc = forward_jacobian(lambda pc: project_full(cam, params, pc)[0], (p_cam0,),
                                 lambda t: (t.expand(n, 3),),
                                 torch.eye(3, dtype=pts.dtype, device=pts.device),
                                 lambda dpix: dpix, n)  # (N, 2, 3)
@@ -421,7 +420,7 @@ def _scan_rows(pack, cam, params, pose0: SE3, p_cam0, pts, si: int, dpx, dpy):
 def _rows_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, flat, layout, pairs,
                     vis, obs_scale):
     """Compact per-image Gram: J (N, D) with D = [n_int | 6*s_max | 6], then
-    the descriptor-residual Gram assembly of ``_gram_assemble``.
+    the descriptor-residual Gram assembly of ``gram_assemble_plain``.
 
     One derivatives-mode sample per point chained with forward-mode
     Jacobians of the projection: pose/intrinsics blocks directly, the scan
@@ -439,8 +438,8 @@ def _rows_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, flat,
     P = params.shape[0]
     eps0 = torch.zeros(6, dtype=torch.float32, device=pts.device)
     basis = torch.eye(P + 6, dtype=torch.float32, device=pts.device)
-    J_pe = _forward_jacobian(
-        lambda eps, prm: _project_full(cam, prm, SE3.exp(eps).compose(pose0).apply(pts))[0],
+    J_pe = forward_jacobian(
+        lambda eps, prm: project_full(cam, prm, SE3.exp(eps).compose(pose0).apply(pts))[0],
         (eps0, params), lambda t: (t[P:], t[:P]), basis if pack.n_int > 0 else basis[P:],
         _chain(dpx, dpy), pts.shape[0])
     rows_scan = _scan_rows(pack, cam, params, pose0, p_cam0, pts, si, dpx, dpy)
@@ -451,12 +450,12 @@ def _rows_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, flat,
 
 def _image_gram(J, inten, ok, neighbors, desc, contrib):
     """One image's (G, g, cost, count) from its per-point Jacobian J (N, D):
-    ``_gram_assemble`` with the products accumulated in float64 and rounded
+    ``gram_assemble_plain`` with the products accumulated in float64 and rounded
     to float32. A float32 BLAS sum over the N points strays from XLA's
     float32 dot by more than the JAX tests' own bounds allow (rtol 1e-4 per
     entry where a Gram entry cancels); the float64 sum stays within them."""
-    G, g, cost, count = _gram_assemble(J[None].double(), inten[None], ok[None], neighbors, desc,
-                                       contrib[None])
+    G, g, cost, count = gram_assemble_plain(J[None].double(), inten[None], ok[None], neighbors,
+                                            desc, contrib[None])
     return G[0].float(), g[0].float(), cost, count
 
 
@@ -466,17 +465,12 @@ def _cost_one_image(pack, params, corr_q, corr_t, pose_q, pose_t, si: int, flat,
     accept test): (cost, count)."""
     cam = pack.camera if camera is None else camera
     pts = _corrected_points(pack, corr_q, corr_t, si)
-    pix, valid = _project_full(cam, params, SE3(pose_q, pose_t).apply(pts))
+    pix, valid = project_full(cam, params, SE3(pose_q, pose_t).apply(pts))
     inten, okS = pyramid_sample(flat, layout, pix[None].contiguous(), obs_scale[None].contiguous(),
                                 with_derivs=False, pairs=pairs)
-    inten, ok = inten[0], valid & okS[0]
-    nbr_inten, nbr_ok = (x[0] for x in _nbr_inten_ok(inten[None], ok[None],
-                                                      pack.scene_neighbors[si]))
-    all_ok = ok & torch.all(nbr_ok, -1) & vis & pack.scene_valid[si]
-    r = (nbr_inten - inten[:, None]) - pack.scene_desc[si]
-    r = torch.where(all_ok[:, None], r, torch.zeros_like(r))
-    norm = torch.sqrt(torch.clamp(torch.sum(r * r, -1), min=1e-20))
-    rho = huber_rho(norm, DEFAULT_COLOR_HUBER)
+    r, all_ok = descriptor_residuals(inten, valid[None] & okS, pack.scene_neighbors[si],
+                                     pack.scene_desc[si], (vis & pack.scene_valid[si])[None])
+    _, rho = huber_terms(r)
     return torch.sum(torch.where(all_ok, rho, torch.zeros_like(rho))), torch.sum(all_ok)
 
 
@@ -515,8 +509,8 @@ def _icp_local(pack, corr_q, corr_t, rows: slice = slice(None)):
         rows = (j[:, None, :] * sgn[:, :, None]).reshape(-1, 6 * F)
         rows_w = rows * sw
         rw = w * r
-        # one (6F x M)(M x 6F) product leaves cuBLAS a few tiles: _gram slices the rows
-        return _gram(rows_w[None], rows_w[None])[0], torch.sum(rows * rw[:, None], 0), torch.sum(rw * r)
+        # one (6F x M)(M x 6F) product leaves cuBLAS a few tiles: gram slices the rows
+        return gram(rows_w[None], rows_w[None])[0], torch.sum(rows * rw[:, None], 0), torch.sum(rw * r)
 
     H1, b1, c1 = gram_of(j1, r1)
     # the twin rows carry the negated sign pattern; (-sgn) Grams equal sgn

@@ -33,6 +33,8 @@ from dataset_pipeline_tpu_torch.models.lie import (
     quat_rotate_fused,
     quat_to_matrix_np,
 )
+from dataset_pipeline_tpu_torch.ops.hb_geometry import forward_jacobian, project_full
+from dataset_pipeline_tpu_torch.ops.hb_gram import gram, inverse_depths
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import flatten_pyramid, pair_rows, pyramid_sample
 from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_DEPTH_TUKEY, tukey_rho, tukey_weight
 from dataset_pipeline_tpu_torch.parallel.joint_ba import (
@@ -57,12 +59,6 @@ from dataset_pipeline_tpu_torch.parallel.joint_ba import (
     run_joint_ba,
 )
 from dataset_pipeline_tpu_torch.parallel.mesh import Mesh, as_mesh, padded_rows, shard_range
-from dataset_pipeline_tpu_torch.photometric.optimizer import (
-    _forward_jacobian,
-    _gram,
-    _inverse_depths,
-    _project_full,
-)
 from dataset_pipeline_tpu_torch.utils.timing import StageTimer
 
 
@@ -314,7 +310,7 @@ def _rows_one(pack: RigJointPack, c: int, params_c, corr_q, corr_t, extr_q, extr
     def geom(eps_e, eps_r, prm):
         ref = SE3.exp(eps_r).compose(ref0)
         pose = SE3.exp(eps_e).compose(extr0).compose(ref) if c > 0 else ref
-        return _project_full(cam, prm, pose.apply(pts))[0]
+        return project_full(cam, prm, pose.apply(pts))[0]
 
     pose0 = _slot_pose(extr_q, extr_t, ref_q, ref_t, c)
     p_cam0 = pose0.apply(pts)
@@ -327,7 +323,7 @@ def _rows_one(pack: RigJointPack, c: int, params_c, corr_q, corr_t, extr_q, extr
     keep = ([*range(P)] if pack.p_len[c] else []) + ([*range(P, P + 6)] if c > 0 else []) + [
         *range(P + 6, P + 12)]
     basis = torch.eye(P + 12, dtype=torch.float32, device=pts.device)[keep]
-    J_per = _forward_jacobian(geom, (z6, z6, params_c),
+    J_per = forward_jacobian(geom, (z6, z6, params_c),
                               lambda t: (t[P:P + 6], t[P + 6:], t[:P]), basis, _chain(dpx, dpy),
                               pts.shape[0])
     rows_scan = _scan_rows(pack, cam, params_c, pose0, p_cam0, pts, si, dpx, dpy)
@@ -349,19 +345,19 @@ def _depth_rows_one(pack: RigJointPack, params0, corr_q, corr_t, ref_q, ref_t, s
     def geom(eps_r, eps_s, prm):
         corr = SE3.exp(eps_s)
         p_cam = SE3.exp(eps_r).compose(ref0).apply(quat_rotate(corr.q[scan], pts) + corr.t[scan])
-        pix, _ = _project_full(cam, prm, p_cam)
+        pix, _ = project_full(cam, prm, p_cam)
         return pix, p_cam[:, 2]
 
     dev = pts.device
     z6 = torch.zeros(6, dtype=torch.float32, device=dev)
     zs = torch.zeros((S, 6), dtype=torch.float32, device=dev)
     pix, z = geom(z6, zs, params0)
-    _, valid = _project_full(cam, params0, ref0.apply(pts))
+    _, valid = project_full(cam, params0, ref0.apply(pts))
     D, dDx, dDy, _, okD = pyramid_sample(flat, layout, pix[None].contiguous(),
                                          obs_scale[None].contiguous(), with_derivs=True,
                                          pairs=pairs)
     D, dDx, dDy, okD = D[0], dDx[0], dDy[0], okD[0]
-    inv_D, inv_z, safe_z = _inverse_depths(D, z)
+    inv_D, inv_z, safe_z = inverse_depths(D, z)
     r0 = inv_D - inv_z
     rho = tukey_rho(r0, DEFAULT_DEPTH_TUKEY)
     w = tukey_weight(r0, DEFAULT_DEPTH_TUKEY)
@@ -377,7 +373,7 @@ def _depth_rows_one(pack: RigJointPack, params0, corr_q, corr_t, ref_q, ref_t, s
     P = params0.shape[0]
     keep = ([*range(P)] if pack.p_len[0] else []) + [*range(P, P + 6 * S + 6)]
     basis = torch.eye(P + 6 * S + 6, dtype=torch.float32, device=dev)[keep]
-    rows = _forward_jacobian(geom, (z6, zs, params0),
+    rows = forward_jacobian(geom, (z6, zs, params0),
                              lambda t: (t[P + 6 * S:], t[P:P + 6 * S].reshape(S, 6), t[:P]),
                              basis, combine, pts.shape[0])  # [P | scans | ref]
     rows = torch.where(ok[:, None], rows, torch.zeros_like(rows))
@@ -385,7 +381,7 @@ def _depth_rows_one(pack: RigJointPack, params0, corr_q, corr_t, ref_q, ref_t, s
     rows_w = rows * sw[:, None]
     r_w = torch.where(ok, r0, torch.zeros_like(r0)) * sw
     # the Gram accumulated in float64 and rounded, as the photometric ones (_image_gram)
-    G = _gram(rows_w[None].double(), rows_w[None].double())[0].float()
+    G = gram(rows_w[None].double(), rows_w[None].double())[0].float()
     g = torch.sum(rows_w * r_w[:, None], 0)
     return G, g, torch.sum(torch.where(ok, rho, torch.zeros_like(rho))), torch.sum(ok)
 
@@ -403,12 +399,12 @@ def _depth_cost_one(pack: RigJointPack, params0, corr_q, corr_t, ref_q, ref_t, s
     pts = _corrected_points(pack, corr_q, corr_t, si)
     p_cam = SE3(ref_q, ref_t).apply(pts)
     z = p_cam[:, 2]
-    pix, valid = _project_full(cam, params0, p_cam)
+    pix, valid = project_full(cam, params0, p_cam)
     D, okD = pyramid_sample(flat, layout, pix[None].contiguous(), obs_scale[None].contiguous(),
                             with_derivs=False, pairs=pairs)
     D, okD = D[0], okD[0]
     ok = valid & okD & (D > 0) & vis & pack.scene_valid[si]
-    inv_D, inv_z, _ = _inverse_depths(D, z)
+    inv_D, inv_z, _ = inverse_depths(D, z)
     rho = tukey_rho(inv_D - inv_z, DEFAULT_DEPTH_TUKEY)
     return torch.sum(torch.where(ok, rho, torch.zeros_like(rho))), torch.sum(ok)
 

@@ -14,11 +14,12 @@ the observations cache (per-image compacted views of the point levels).
   Huber-weighted on the component-vector norm.
 - **Jacobians**: one trilinear sample with analytic derivatives per
   observation (``ops/pyramid_sample.py``, the CUDA kernel on the card) chained
-  with forward-mode derivatives (``torch.func.jvp`` over the variables) of the
-  gather-free projection and footprint-scale math; ``_hb_batch``'s geometry
-  runs in one CUDA kernel on the card (``ops/hb_geometry.py``), and the
-  residuals and Gram products of ``_hb_batch`` and ``_hb_rig_batch`` in
-  another (``ops/hb_gram.py``).
+  with forward-mode derivatives of the gather-free projection and
+  footprint-scale math (``ops/hb_geometry.py``: ``_hb_batch``'s in a CUDA
+  kernel on the card, ``torch.func.jvp`` over the variables otherwise); the
+  residuals and Gram products in ``ops/hb_gram.py`` (a CUDA kernel on the
+  card). Each op chooses between its kernel and its plain version; the
+  functions here are the per-chunk skeletons and the LM loop.
 - **LM**: H diagonal *= (1+lambda), accept if the cost decreases with frozen
   visibility, lambda halve/double, 10 tries, force-apply the last try.
   Variables: the intrinsics blocks first, then 6 dof per rig camera other
@@ -46,7 +47,24 @@ import torch
 
 from dataset_pipeline_tpu_torch.models import cameras as cm
 from dataset_pipeline_tpu_torch.models.lie import SE3
+# the ops' dispatchers (project, jacobian, gram_assemble) are looked up on their modules at
+# call time, so that a caller may wrap them; their helpers are imported by name
 from dataset_pipeline_tpu_torch.ops import hb_geometry, hb_gram
+from dataset_pipeline_tpu_torch.ops.hb_geometry import (
+    batch_pose,
+    footprint_scale,
+    forward_jacobian,
+    geom_fn,
+    intensity_chain,
+    project_full,
+    tangent_basis,
+)
+from dataset_pipeline_tpu_torch.ops.hb_gram import (
+    descriptor_residuals,
+    gram,
+    huber_terms,
+    inverse_depths,
+)
 from dataset_pipeline_tpu_torch.ops.pyramid_sample import (
     PyramidLayout,
     flatten_pyramid,
@@ -55,10 +73,7 @@ from dataset_pipeline_tpu_torch.ops.pyramid_sample import (
 )
 from dataset_pipeline_tpu_torch.ops.mesh_raster import render_occlusion_mesh_depth_batch
 from dataset_pipeline_tpu_torch.ops.robust import (
-    DEFAULT_COLOR_HUBER,
     DEFAULT_DEPTH_TUKEY,
-    huber_rho,
-    huber_weight,
     tukey_rho,
     tukey_weight,
 )
@@ -67,57 +82,10 @@ from dataset_pipeline_tpu_torch.photometric.obs_cache import ObservationsCache
 from dataset_pipeline_tpu_torch.photometric.problem import PhotoProblem
 from dataset_pipeline_tpu_torch.utils.timing import count, span, stage, within_stage
 
-_INVALID_INTENSITY = 3.0e8  # neighbor-validity sentinel, exact in float32
-_JVP_ELEMENTS = 1 << 25  # (tangent, image, point) triples per vmapped jvp pass
-_GRAM_ROWS = 8192  # rows per batch entry of the split Gram products
-
-
-# ---------------------------------------------------------------------------
-# Differentiable projection helpers
-# ---------------------------------------------------------------------------
-
-
-def _scaled_params(camera: cm.Camera, params, scale: int):
-    """Full-res params -> params of the 2^-scale camera, differentiably
-    (the formula of ``scaled_by``; linear in the originals)."""
-    factor = 2.0 ** (-scale)
-    if camera.spec.unique_focal:
-        head = torch.stack([params[0] * factor, factor * (params[1] + 0.5) - 0.5,
-                            factor * (params[2] + 0.5) - 0.5])
-        return torch.cat([head, params[3:]])
-    head = torch.stack([params[0] * factor, params[1] * factor,
-                        factor * (params[2] + 0.5) - 0.5, factor * (params[3] + 0.5) - 0.5])
-    return torch.cat([head, params[4:]])
-
-
-def _project_full(camera: cm.Camera, params, p_cam):
-    """Project with explicit params at scale 0: (pix, valid)."""
-    return cm.project(camera.with_params(params), p_cam)
-
 
 def _exp2(k):
     """2^k for integer-valued float ``k``, exact (``pow`` of 2)."""
     return torch.pow(2.0, k)
-
-
-def _batch_pose(q, t) -> SE3:
-    """(nb,) poses shaped to broadcast against (M,3) points: (nb,1,·)."""
-    return SE3(q[:, None, :], t[:, None, :])
-
-
-def _footprint_scale(camera, params, pose: SE3, points, radius):
-    """Continuous observation scale log2(2 radius_px) as a differentiable
-    function of intrinsics and pose (the formula of the visibility pass, so
-    values coincide at the linearization point)."""
-    c = camera.with_params(params)
-    p_cam = pose.apply(points)
-    pix, _ = cm.project(c, p_cam)
-    z = p_cam[..., 2]
-    eps = 1e-3 * torch.clamp(z, min=1e-6)
-    p2 = p_cam + torch.stack([eps, torch.zeros_like(eps), torch.zeros_like(eps)], -1)
-    pix2, _ = cm.project(c, p2)
-    px_per_m = torch.sqrt(cm._sqnorm(pix2 - pix, keepdim=False)) / eps
-    return torch.log2(torch.clamp(2.0 * radius * px_per_m, min=1e-12))
 
 
 # ---------------------------------------------------------------------------
@@ -128,9 +96,10 @@ def _footprint_scale(camera, params, pose: SE3, points, radius):
 def _visibility_core(camera: cm.Camera, pose_q, pose_t, points, radius, occl_depth,
                      current_scale, scale_count: int, width: int, height: int,
                      depth_slack=0.01, min_depth=0.05):
-    """(visible (nb,M), obs_scale (nb,M)) of points (M,3) in a chunk of
-    images with poses (nb,4)/(nb,3) and full-res occlusion depths (nb,H,W)."""
-    p_cam = _batch_pose(pose_q, pose_t).apply(points)
+    """(visible (nb,M), obs_scale (nb,M), pix (nb,M,2)) of points (M,3) in a
+    chunk of images with poses (nb,4)/(nb,3) and full-res occlusion depths
+    (nb,H,W)."""
+    p_cam = batch_pose(pose_q, pose_t).apply(points)
     pix, valid = cm.project(camera, p_cam)
     z = p_cam[..., 2]
 
@@ -140,13 +109,7 @@ def _visibility_core(camera: cm.Camera, pose_q, pose_t, points, radius, occl_dep
     occ = torch.gather(occl_depth.reshape(occl_depth.shape[0], -1), 1, iy * width + ix)
     valid = valid & (z <= occ + depth_slack) & (z > min_depth)
 
-    # footprint scale
-    eps = 1e-3 * torch.clamp(z, min=1e-6)
-    p2 = p_cam + torch.stack([eps, torch.zeros_like(eps), torch.zeros_like(eps)], -1)
-    pix2, _ = cm.project(camera, p2)
-    px_per_m = torch.sqrt(cm._sqnorm(pix2 - pix, keepdim=False)) / eps
-    obs_scale = torch.log2(torch.clamp(2.0 * (radius * px_per_m), min=1e-12))
-
+    obs_scale = footprint_scale(camera, p_cam, pix, radius)
     valid = (valid & (obs_scale >= current_scale)
              & (torch.floor(obs_scale) < scale_count - 1) & (obs_scale >= 0))
 
@@ -159,19 +122,18 @@ def _visibility_core(camera: cm.Camera, pose_q, pose_t, points, radius, occl_dep
     border = 1.0
     valid = (valid & (xs + 0.5 >= border) & (ys + 0.5 >= border)
              & (xs + 0.5 < w_si - border) & (ys + 0.5 < h_si - border))
-    return valid, obs_scale
+    return valid, obs_scale, pix
 
 
-def _mask_filter_core(camera: cm.Camera, pose_q, pose_t, points, obs_scale, valid,
-                      flat, layout: PyramidLayout, mask_flat, max_valid_intensity):
+def _mask_filter_core(pix, obs_scale, valid, flat, layout: PyramidLayout, mask_flat,
+                      max_valid_intensity):
     """Reject observations whose pixel at the coarser interpolation level is
-    masked or oversaturated: one flat-pyramid lookup per observation.
-    ``mask_flat`` is None (no masks) or the (nb, total) uint8 mask pyramid."""
+    masked or oversaturated: one flat-pyramid lookup per observation at its
+    full-res ``pix`` (``_visibility_core``'s). ``mask_flat`` is None (no
+    masks) or the (nb, total) uint8 mask pyramid."""
     L = layout.levels
     if L <= 1:
         return valid
-    p_cam = _batch_pose(pose_q, pose_t).apply(points)
-    pix, _ = cm.project(camera, p_cam)
     si = torch.floor(obs_scale).nan_to_num(0.0) + 1
     sic = torch.clamp(si, 1, L - 1).long()
     dev = flat.device
@@ -198,33 +160,13 @@ def _mask_filter_core(camera: cm.Camera, pose_q, pose_t, points, obs_scale, vali
 # ---------------------------------------------------------------------------
 
 
-def _rows(x, idx, per_image: bool):
-    """Rows of ``x`` (nb, M, ...) picked by ``idx``: one index array for
-    every image (M', ...), or ``per_image`` (nb, M', ...); -> (nb, M', ...)."""
-    if not per_image:
-        return x[:, idx]
-    ar = torch.arange(x.shape[0], device=x.device).view((-1,) + (1,) * (idx.dim() - 1))
-    return x[ar, idx]
-
-
-def _nbr_inten_ok(inten, ok, neighbors):
-    """Neighbor (intensity, validity) in one gather: validity rides as the
-    3e8 sentinel inside the intensity plane (intensities live in [0, 255]).
-    ``inten``/``ok`` (nb,M), ``neighbors`` (M,K) or per image (nb,M,K) ->
-    (nb,M,K) each."""
-    enc = torch.where(ok, inten, torch.full_like(inten, _INVALID_INTENSITY))
-    ge = _rows(enc, neighbors, neighbors.dim() == 3)
-    nbr_ok = ge < 1.5e8
-    return torch.where(nbr_ok, ge, torch.zeros_like(ge)), nbr_ok
-
-
 def _point_intensities(camera, params, pose_q, pose_t, points, flat, layout, obs_scale,
                        pairs=None):
     """(intensity, valid) (nb,M) of every point under the given state.
     ``pairs``: the row-paired copy of ``flat`` that the sampling kernel reads
     on the card (``ImageBatch.pairs``)."""
-    p_cam = _batch_pose(pose_q, pose_t).apply(points)
-    pix, valid = _project_full(camera, params, p_cam)
+    p_cam = batch_pose(pose_q, pose_t).apply(points)
+    pix, valid = project_full(camera, params, p_cam)
     val, ok = pyramid_sample(flat, layout, pix.contiguous(), obs_scale.contiguous(),
                              with_derivs=False, pairs=pairs)
     return val, valid & ok
@@ -235,12 +177,8 @@ def _cost_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, l
     """Summed (cost, count) of a chunk of images on one level (tensors)."""
     inten, ok = _point_intensities(camera, params, pose_q, pose_t, points, flat, layout,
                                    obs_scale, pairs)
-    nbr_inten, nbr_ok = _nbr_inten_ok(inten, ok, neighbors)
-    all_ok = ok & torch.all(nbr_ok, -1) & contrib
-    r = (nbr_inten - inten[..., None]) - desc
-    r = torch.where(all_ok[..., None], r, torch.zeros_like(r))
-    norm = torch.sqrt(torch.clamp(torch.sum(r * r, -1), min=1e-20))
-    rho = huber_rho(norm, DEFAULT_COLOR_HUBER)
+    r, all_ok = descriptor_residuals(inten, ok, neighbors, desc, contrib)
+    _, rho = huber_terms(r)
     cost = torch.sum(torch.where(all_ok, rho, torch.zeros_like(rho)), 1)
     return torch.sum(cost), torch.sum(all_ok)
 
@@ -254,10 +192,7 @@ def _imgdesc_batch(camera, params, pose_q, pose_t, points, neighbors, flat, layo
     to scatter into the level."""
     inten, ok = _point_intensities(camera, params, pose_q, pose_t, points, flat, layout,
                                    obs_scale, pairs)
-    nbr_inten, nbr_ok = _nbr_inten_ok(inten, ok, neighbors)
-    all_ok = ok & torch.all(nbr_ok, -1) & contrib
-    d = nbr_inten - inten[..., None]
-    d = torch.where(all_ok[..., None], d, torch.zeros_like(d))
+    d, all_ok = descriptor_residuals(inten, ok, neighbors, None, contrib)
     if points.dim() == 3:
         return d, all_ok
     return torch.sum(d, 0), torch.sum(all_ok.to(torch.int32), 0, dtype=torch.int32)
@@ -266,145 +201,6 @@ def _imgdesc_batch(camera, params, pose_q, pose_t, points, neighbors, flat, layo
 # ---------------------------------------------------------------------------
 # H, b
 # ---------------------------------------------------------------------------
-
-
-def _gram(x, y):
-    """Per-image x^T y: (nb,M,a), (nb,M,b) -> (nb,a,b) in strict fp32.
-
-    The row axis is cut into slices of ``_GRAM_ROWS`` that become separate
-    batch entries, summed afterwards: one (a x M)(M x b) product per image
-    with M ~ 10^6 and a, b <= 10 leaves cuBLAS a handful of output tiles, so
-    it ran on a few SMs (~18 ms per product on the H100, 75 % of the
-    registrator's device time). Operands of two float dtypes meet in the
-    wider one."""
-    if x.dtype != y.dtype:
-        dt = torch.promote_types(x.dtype, y.dtype)
-        x, y = x.to(dt), y.to(dt)
-    nb, M, a = x.shape
-    S = M // _GRAM_ROWS
-    n = S * _GRAM_ROWS
-    out = None
-    if S:
-        out = torch.bmm(x[:, :n].reshape(nb * S, _GRAM_ROWS, a).transpose(1, 2),
-                        y[:, :n].reshape(nb * S, _GRAM_ROWS, y.shape[-1])
-                        ).view(nb, S, a, -1).sum(1)
-    if n < M:
-        rest = torch.bmm(x[:, n:].transpose(1, 2), y[:, n:])
-        out = rest if out is None else out + rest
-    return out
-
-
-def _gram_assemble(J, inten, ok, neighbors, desc, contrib_mask):
-    """H (nb,V,V), b (nb,V), cost, count from the per-point intensity
-    Jacobian J (nb,M,V).
-
-    The residual rows r_nk = I[nbr_nk] - I[n] - d_nk have Jacobian
-    J[nbr_nk] - J[n]; the Gram sum is expanded per neighbor slot k with
-    A_k = J[nbr_:,k] (one gather each, then strict-fp32 batched products,
-    :func:`_gram`):
-
-      H = sum_k [A_k^T W A_k - A_k^T W J - (A_k^T W J)^T] + K J^T W J
-      b = sum_k A_k^T (w r_k)  -  J^T (w sum_k r_k)
-    """
-    nbr_inten, nbr_ok = _nbr_inten_ok(inten, ok, neighbors)
-    all_ok = ok & torch.all(nbr_ok, -1) & contrib_mask
-    r = (nbr_inten - inten[..., None]) - desc
-    r = torch.where(all_ok[..., None], r, torch.zeros_like(r))
-    norm = torch.sqrt(torch.clamp(torch.sum(r * r, -1), min=1e-20))
-    rho = huber_rho(norm, DEFAULT_COLOR_HUBER)
-    w = torch.where(all_ok, huber_weight(norm, DEFAULT_COLOR_HUBER), torch.zeros_like(norm))
-    # invalid points carry no weight but may hold non-finite J entries
-    J = torch.where(ok[..., None], J, torch.zeros_like(J))
-    K = neighbors.shape[-1]
-    H = K * _gram(w[..., None] * J, J)
-    b = -_gram(J, (w * torch.sum(r, -1))[..., None])[..., 0]
-    for k in range(K):
-        Ak = _rows(J, neighbors[..., k], neighbors.dim() == 3)
-        WAk = w[..., None] * Ak
-        M = _gram(WAk, J)
-        H = H + _gram(WAk, Ak) - M - M.transpose(1, 2)
-        b = b + _gram(Ak, (w * r[..., k])[..., None])[..., 0]
-    cost = torch.sum(torch.sum(torch.where(all_ok, rho, torch.zeros_like(rho)), 1))
-    return H, b, cost, torch.sum(all_ok)
-
-
-def _basis(P: int, n_pose: int, optimize_intrinsics: bool, device):
-    """Tangent basis over [P intrinsics | n_pose pose dofs]; without
-    intrinsics only the pose rows."""
-    basis = torch.eye(P + n_pose, dtype=torch.float32, device=device)
-    return basis if optimize_intrinsics else basis[P:]
-
-
-def _forward_jacobian(geom, primals, tangents_of, basis, combine, elements: int):
-    """J (..., V): one column per row of ``basis``, ``combine`` applied to
-    ``geom``'s output tangents along ``tangents_of(basis row)`` (what jacfwd
-    computes), vmapped in chunks so that no intermediate holds more than
-    ~_JVP_ELEMENTS points."""
-
-    def column(t):
-        _, dout = torch.func.jvp(geom, primals, tangents_of(t))
-        return combine(dout)
-
-    chunk = max(1, _JVP_ELEMENTS // max(elements, 1))
-    return torch.func.vmap(column, out_dims=-1, chunk_size=chunk)(basis)
-
-
-def _intensity_chain(dpx, dpy, dvds, dynamic_scale: bool):
-    """dI/dvar from (dpix/dvar, dfootprint/dvar)."""
-
-    def combine(dout):
-        dpix, dfp = dout
-        col = dpx * dpix[..., 0] + dpy * dpix[..., 1]
-        return col + dvds * dfp if dynamic_scale else col
-
-    return combine
-
-
-def _geom_fn(camera, points, radius, dynamic_scale: bool, pose_of):
-    """(pix, footprint scale) of ``points`` under ``pose_of(*eps)`` and the
-    intrinsics ``prm`` (the last argument): the gather-free part of the
-    Jacobian chain."""
-
-    def geom(*args):
-        pose = pose_of(*args[:-1])
-        prm = args[-1]
-        pix, _ = _project_full(camera, prm, pose.apply(points))
-        if dynamic_scale:
-            fp = _footprint_scale(camera, prm, pose, points, radius)
-        else:
-            fp = torch.zeros(pix.shape[:-1], dtype=pix.dtype, device=pix.device)
-        return pix, fp
-
-    return geom
-
-
-def _project_plain(camera, params, pose_q, pose_t, points):
-    """``_hb_batch``'s (pix (nb,M,2), valid (nb,M)) off the card or for the
-    models ``csrc/hb_geometry.cu`` does not implement, and that kernel's
-    oracle: pix under ``SE3.exp(0).compose(pose)``, the pose at which
-    :func:`_jacobian_plain` differentiates, valid under the pose itself."""
-    pose0 = _batch_pose(pose_q, pose_t)
-    eps0 = torch.zeros(6, dtype=torch.float32, device=points.device)
-    pix, _ = _project_full(camera, params, SE3.exp(eps0).compose(pose0).apply(points))
-    _, valid = _project_full(camera, params, pose0.apply(points))
-    return pix, valid
-
-
-def _jacobian_plain(camera, params, pose_q, pose_t, points, radius, dpx, dpy, dvds,
-                    optimize_intrinsics: bool, dynamic_scale: bool):
-    """J (nb,M,V) of :func:`_project_plain`'s rows by ``torch.func.jvp``
-    under ``vmap``: each image's pixel depends only on its own pose, so one
-    shared 6-vector tangent gives every image's pose Jacobian at once. In
-    the points' dtype (float64 inputs give the kernel's float64 oracle)."""
-    pose0 = _batch_pose(pose_q, pose_t)
-    geom = _geom_fn(camera, points, radius, dynamic_scale,
-                    lambda eps: SE3.exp(eps).compose(pose0))
-    eps0 = torch.zeros(6, dtype=points.dtype, device=points.device)
-    P = params.shape[0]
-    return _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
-                             _basis(P, 6, optimize_intrinsics, eps0.device).to(eps0.dtype),
-                             _intensity_chain(dpx, dpy, dvds, dynamic_scale),
-                             dpx.shape[0] * dpx.shape[1])
 
 
 def _hb_spans(timings, device):
@@ -416,19 +212,6 @@ def _hb_spans(timings, device):
             lambda: span(timings, "hb_accumulate.gram", device, host=True))
 
 
-def _gram_dispatch(J, inten, ok, neighbors, desc, contrib, gram, timings):
-    """``_gram_assemble``'s result inside the ``gram`` span: on the card by
-    the kernel ``csrc/hb_gram.cu`` (``ops/hb_gram.py``, which raises for J it
-    cannot take), counting ``hb_accumulate.gram_kernel_rows`` (nb x M); for
-    CPU tensors by the plain body."""
-    kernel = hb_gram.uses_kernel(J)
-    if kernel:
-        count(timings, "hb_accumulate.gram_kernel_rows", J.shape[0] * J.shape[1])
-    with gram():
-        return (hb_gram.gram_assemble if kernel else _gram_assemble)(J, inten, ok, neighbors, desc,
-                                                                     contrib)
-
-
 def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, layout,
               obs_scale, contrib, radius, optimize_intrinsics: bool, dynamic_scale: bool,
               pairs=None, *, timings=None):
@@ -437,28 +220,34 @@ def _hb_batch(camera, params, pose_q, pose_t, points, neighbors, desc, flat, lay
 
     One sample with analytic derivatives per observation (dI/dpix, dI/dscale)
     chained with forward-mode Jacobians of the gather-free projection and
-    footprint math: the kernel ``csrc/hb_geometry.cu`` (``ops/hb_geometry.py``)
-    on the card for the models it implements, else ``torch.func.jvp``; the
-    residuals and Gram products by ``_gram_dispatch``. ``timings``, if given,
-    collects the child spans of ``hb_accumulate`` and counts
-    ``hb_accumulate.geometry_kernel_rows`` and ``.gram_kernel_rows``, the
-    rows whose geometry or Gram products the kernels computed."""
-    geometry, sample, gram = _hb_spans(timings, points.device)
-    kernel = hb_geometry.uses_kernel(camera, points)
-    project, jacobian = ((hb_geometry.project, hb_geometry.jacobian) if kernel
-                         else (_project_plain, _jacobian_plain))
+    footprint math (``ops/hb_geometry.py``), then the residuals and Gram
+    products (``ops/hb_gram.py``); each op chooses its kernel or its plain
+    version itself. ``timings``, if given, collects the child spans of
+    ``hb_accumulate`` and counts ``hb_accumulate.geometry_kernel_rows`` and
+    ``.gram_kernel_rows``, the rows whose geometry or Gram products the
+    kernels computed."""
+    geometry, sample, gram_span = _hb_spans(timings, points.device)
     with geometry():
-        pix, valid = project(camera, params, pose_q, pose_t, points)
+        pix, valid = hb_geometry.project(camera, params, pose_q, pose_t, points)
     with sample():
         inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
                                                     obs_scale.contiguous(), with_derivs=True,
                                                     pairs=pairs)
     with geometry():
-        J = jacobian(camera, params, pose_q, pose_t, points, radius, dpx, dpy, dvds,
-                     optimize_intrinsics, dynamic_scale)  # (nb, M, V)
-    if kernel:
+        J = hb_geometry.jacobian(camera, params, pose_q, pose_t, points, radius, dpx, dpy, dvds,
+                                 optimize_intrinsics, dynamic_scale)  # (nb, M, V)
+    if hb_geometry.uses_kernel(camera, points):
         count(timings, "hb_accumulate.geometry_kernel_rows", pix.shape[0] * pix.shape[1])
-    return _gram_dispatch(J, inten, valid & okS, neighbors, desc, contrib, gram, timings)
+    return _gram_counted(J, inten, valid & okS, neighbors, desc, contrib, gram_span, timings)
+
+
+def _gram_counted(J, inten, ok, neighbors, desc, contrib, gram_span, timings):
+    """``hb_gram.gram_assemble`` inside the ``gram`` span, counting
+    ``hb_accumulate.gram_kernel_rows`` (nb x M) where the kernel takes J."""
+    if hb_gram.uses_kernel(J):
+        count(timings, "hb_accumulate.gram_kernel_rows", J.shape[0] * J.shape[1])
+    with gram_span():
+        return hb_gram.gram_assemble(J, inten, ok, neighbors, desc, contrib)
 
 
 def _hb_rig_batch(camera, params, extr_q, extr_t, ref_q, ref_t, points, neighbors, desc, flat,
@@ -468,36 +257,28 @@ def _hb_rig_batch(camera, params, extr_q, extr_t, ref_q, ref_t, points, neighbor
     the extrinsics (4,)/(3,) shared, the reference poses (nb,4)/(nb,3) per
     image. Per-image H, b over [P intrinsics | 6 extrinsics | 6 reference
     pose], and the summed cost/count; ``timings`` as in ``_hb_batch``."""
-    geometry, sample, gram = _hb_spans(timings, points.device)
+    geometry, sample, gram_span = _hb_spans(timings, points.device)
     with geometry():
         extr0 = SE3(extr_q, extr_t)
-        ref0 = _batch_pose(ref_q, ref_t)
-        geom = _geom_fn(camera, points, radius, dynamic_scale,
-                        lambda eps_e, eps_r: SE3.exp(eps_e).compose(extr0).compose(
-                            SE3.exp(eps_r).compose(ref0)))
+        ref0 = batch_pose(ref_q, ref_t)
+        geom = geom_fn(camera, points, radius, dynamic_scale,
+                       lambda eps_e, eps_r: SE3.exp(eps_e).compose(extr0).compose(
+                           SE3.exp(eps_r).compose(ref0)))
         z6 = torch.zeros(6, dtype=torch.float32, device=points.device)
         pix, _ = geom(z6, z6, params)
         pose0 = SE3.exp(z6).compose(extr0).compose(SE3.exp(z6).compose(ref0))
-        _, valid = _project_full(camera, params, pose0.apply(points))
+        _, valid = project_full(camera, params, pose0.apply(points))
     with sample():
         inten, dpx, dpy, dvds, okS = pyramid_sample(flat, layout, pix.contiguous(),
                                                     obs_scale.contiguous(), with_derivs=True,
                                                     pairs=pairs)
     with geometry():
         P = params.shape[0]
-        J = _forward_jacobian(geom, (z6, z6, params), lambda t: (t[P:P + 6], t[P + 6:], t[:P]),
-                              _basis(P, 12, optimize_intrinsics, z6.device),
-                              _intensity_chain(dpx, dpy, dvds, dynamic_scale),
-                              pix.shape[0] * pix.shape[1])
-    return _gram_dispatch(J, inten, valid & okS, neighbors, desc, contrib, gram, timings)
-
-
-def _inverse_depths(D, z):
-    """(1/D or 0 where D <= 0, 1/z or 0 where z == 0, z with 0 -> 1)."""
-    inv_D = torch.where(D > 0, 1.0 / torch.clamp(D, min=1e-9), torch.zeros_like(D))
-    safe_z = torch.where(z == 0, torch.ones_like(z), z)
-    inv_z = torch.where(z != 0, 1.0 / safe_z, torch.zeros_like(z))
-    return inv_D, inv_z, safe_z
+        J = forward_jacobian(geom, (z6, z6, params), lambda t: (t[P:P + 6], t[P + 6:], t[:P]),
+                             tangent_basis(P, 12, optimize_intrinsics, z6.device),
+                             intensity_chain(dpx, dpy, dvds, dynamic_scale),
+                             pix.shape[0] * pix.shape[1])
+    return _gram_counted(J, inten, valid & okS, neighbors, desc, contrib, gram_span, timings)
 
 
 def _hb_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_scale, contrib,
@@ -507,8 +288,8 @@ def _hb_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_sc
     row-paired copy on the card), Tukey-weighted. Per-image H (nb,V,V), b
     (nb,V) over [P intrinsics | 6 pose], and the summed cost/count;
     ``timings`` as in ``_hb_batch``."""
-    geometry, sample, gram = _hb_spans(timings, points.device)
-    pose0 = _batch_pose(pose_q, pose_t)
+    geometry, sample, gram_span = _hb_spans(timings, points.device)
+    pose0 = batch_pose(pose_q, pose_t)
 
     def geom(eps, prm):
         p_cam = SE3.exp(eps).compose(pose0).apply(points)
@@ -522,8 +303,8 @@ def _hb_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_sc
     with sample():
         D, dDx, dDy, _, okD = pyramid_sample(flat, layout, pix.contiguous(),
                                              obs_scale.contiguous(), with_derivs=True, pairs=pairs)
-    with gram():
-        inv_D, inv_z, safe_z = _inverse_depths(D, z)
+    with gram_span():
+        inv_D, inv_z, safe_z = inverse_depths(D, z)
         r0 = inv_D - inv_z
         rho = tukey_rho(r0, DEFAULT_DEPTH_TUKEY)
         w = tukey_weight(r0, DEFAULT_DEPTH_TUKEY)
@@ -540,17 +321,17 @@ def _hb_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_sc
 
     with geometry():
         P = params.shape[0]
-        rows = _forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
-                                 _basis(P, 6, optimize_intrinsics, eps0.device), combine,
-                                 pix.shape[0] * pix.shape[1])
-    with gram():
+        rows = forward_jacobian(geom, (eps0, params), lambda t: (t[P:], t[:P]),
+                                tangent_basis(P, 6, optimize_intrinsics, eps0.device), combine,
+                                pix.shape[0] * pix.shape[1])
+    with gram_span():
         # invalid points carry zero weight but may hold non-finite J entries
         rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
         sw = torch.sqrt(wfull)
         rows_w = rows * sw[..., None]
         r_w = torch.where(ok, r0, torch.zeros_like(r0)) * sw
-        H = _gram(rows_w, rows_w)
-        b = _gram(rows_w, r_w[..., None])[..., 0]
+        H = gram(rows_w, rows_w)
+        b = gram(rows_w, r_w[..., None])[..., 0]
         cost = torch.sum(torch.where(ok, rho, torch.zeros_like(rho)))
         return H, b, cost, torch.sum(ok)
 
@@ -558,13 +339,13 @@ def _hb_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_sc
 def _cost_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_scale, contrib,
                       pairs=None):
     """Summed Tukey (cost, count) of the inverse-depth residuals of a chunk."""
-    p_cam = _batch_pose(pose_q, pose_t).apply(points)
+    p_cam = batch_pose(pose_q, pose_t).apply(points)
     z = p_cam[..., 2]
     pix, valid = cm.project(camera.with_params(params), p_cam)
     D, okD = pyramid_sample(flat, layout, pix.contiguous(), obs_scale.contiguous(),
                             with_derivs=False, pairs=pairs)
     ok = valid & okD & (D > 0) & contrib
-    inv_D, inv_z, _ = _inverse_depths(D, z)
+    inv_D, inv_z, _ = inverse_depths(D, z)
     rho = tukey_rho(inv_D - inv_z, DEFAULT_DEPTH_TUKEY)
     return torch.sum(torch.where(ok, rho, torch.zeros_like(rho))), torch.sum(ok)
 
@@ -572,13 +353,12 @@ def _cost_depth_batch(camera, params, pose_q, pose_t, points, flat, layout, obs_
 def _point_costs(camera, params, pose_q, pose_t, points, neighbors, desc, flat, layout,
                  obs_scale, contrib, pairs=None):
     """Per-point robust cost rho (nb,M) and validity: the data behind the
-    cost display modes."""
+    cost display modes (rho of a point that is not valid is that of a zero
+    residual)."""
     inten, ok = _point_intensities(camera, params, pose_q, pose_t, points, flat, layout,
                                    obs_scale, pairs)
-    nbr_inten, nbr_ok = _nbr_inten_ok(inten, ok, neighbors)
-    r = (nbr_inten - inten[..., None]) - desc
-    norm = torch.sqrt(torch.clamp(torch.sum(r * r, -1), min=1e-20))
-    return huber_rho(norm, DEFAULT_COLOR_HUBER), ok & torch.all(nbr_ok, -1) & contrib
+    r, all_ok = descriptor_residuals(inten, ok, neighbors, desc, contrib)
+    return huber_terms(r)[1], all_ok
 
 # ---------------------------------------------------------------------------
 # Per-chunk passes over every level (the JAX package fuses these into one
@@ -595,13 +375,12 @@ def _visibility_mask_levels(camera, pose_q, pose_t, occl, level_args, current_sc
     obs_scale)."""
     outs = []
     for points, radius, core in level_args:
-        m, sc = _visibility_core(camera, pose_q, pose_t, points, radius, occl,
-                                 current_scale, scale_count, width, height,
-                                 depth_slack, min_depth)
+        m, sc, pix = _visibility_core(camera, pose_q, pose_t, points, radius, occl,
+                                      current_scale, scale_count, width, height,
+                                      depth_slack, min_depth)
         if core is not None:
             m = m & core
-        m = _mask_filter_core(camera, pose_q, pose_t, points, sc, m, flat, layout,
-                              mask_flat, max_valid_intensity)
+        m = _mask_filter_core(pix, sc, m, flat, layout, mask_flat, max_valid_intensity)
         outs.append((m, sc))
     return tuple(outs)
 
@@ -797,7 +576,7 @@ class PhotometricOptimizer:
             for l, level in enumerate(self.p.levels):
                 for idx in _chunk_indices(g.num_images, self.image_chunk):
                     idxd = torch.as_tensor(idx, dtype=torch.long, device=self.device)
-                    m, _ = _visibility_core(cam, g.poses.q[idxd], g.poses.t[idxd], level.points,
+                    m, _, _ = _visibility_core(cam, g.poses.q[idxd], g.poses.t[idxd], level.points,
                                             level.radius, occl[gi][idxd], 0.0, g.level_count,
                                             cam.width, cam.height,
                                             2.0 * self.p.occlusion_depth_threshold, 0.05)
@@ -935,7 +714,7 @@ class PhotometricOptimizer:
                     chunks.append(render_occlusion_mesh_depth_batch(
                         cam, q, t, self.p.occlusion_mesh, splat_radius=self.p.occlusion_radius))
                     continue
-                p_cam = _batch_pose(q, t).apply(self.p.occlusion_points)
+                p_cam = batch_pose(q, t).apply(self.p.occlusion_points)
                 chunks.append(render_splats_depth(p_cam, radii, cam,
                                                   max_radius_px=self.max_radius_px,
                                                   timings=timings))

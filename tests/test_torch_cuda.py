@@ -1127,7 +1127,6 @@ def test_hb_geometry_kernel_matches_plain(cuda_device, model, per_image, dynamic
     ~1e-4). THIN_PRISM_FISHEYE's J is held to the plain version in float64,
     as the kernel takes the lens in double. One launch of each mode."""
     from dataset_pipeline_tpu_torch.ops import hb_geometry as hg
-    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
 
     cam, q, t, pts, (dpx, dpy, dvds) = _hb_scene(cuda_device, model, per_image)
     assert hg.uses_kernel(cam, pts)
@@ -1137,17 +1136,17 @@ def test_hb_geometry_kernel_matches_plain(cuda_device, model, per_image, dynamic
                     dynamic_scale)
     assert gn.LAUNCHES["hb_geometry_project"] == n0["hb_geometry_project"] + 1
     assert gn.LAUNCHES["hb_geometry_jacobian"] == n0["hb_geometry_jacobian"] + 1
-    pix_p, valid_p = tpo._project_plain(cam, cam.params, q, t, pts)
+    pix_p, valid_p = hg.project_plain(cam, cam.params, q, t, pts)
     if cam.spec.fisheye:
         import dataclasses
 
         c64 = dataclasses.replace(cam, params=cam.params.double())
-        J_p = tpo._jacobian_plain(c64, c64.params, q.double(), t.double(), pts.double(), 0.004,
-                                  dpx.double(), dpy.double(), dvds.double(), optimize_intrinsics,
-                                  dynamic_scale)
+        J_p = hg.jacobian_plain(c64, c64.params, q.double(), t.double(), pts.double(), 0.004,
+                                dpx.double(), dpy.double(), dvds.double(), optimize_intrinsics,
+                                dynamic_scale)
     else:
-        J_p = tpo._jacobian_plain(cam, cam.params, q, t, pts, 0.004, dpx, dpy, dvds,
-                                  optimize_intrinsics, dynamic_scale)
+        J_p = hg.jacobian_plain(cam, cam.params, q, t, pts, 0.004, dpx, dpy, dvds,
+                                optimize_intrinsics, dynamic_scale)
     assert gn.LAUNCHES == {**n0, "hb_geometry_project": n0["hb_geometry_project"] + 1,
                            "hb_geometry_jacobian": n0["hb_geometry_jacobian"] + 1}
     assert torch.equal(valid, valid_p)
@@ -1241,7 +1240,7 @@ def test_hb_batch_on_the_card_matches_cpu(cuda_device, model, per_image):
 
 
 def _gram_chunk(device, nb, M, V, K=5, per_image=False, seed=3):
-    """Inputs of ``_gram_assemble`` at a registrator chunk's shape: J
+    """Inputs of ``hb_gram.gram_assemble`` at a registrator chunk's shape: J
     (nb, M, V) at random with NaN in the 5 % of rows that are invalid,
     intensities about 100, descriptors that make about half the residual
     norms Huber inliers, neighbours among the 64 rows around each point (as a
@@ -1266,7 +1265,7 @@ def _gram_chunk(device, nb, M, V, K=5, per_image=False, seed=3):
                                               (3, 40_000, 6, True), (3, 40_000, 16, True),
                                               (4, 400_000, 24, False), (3, 40_000, 20, True)])
 def test_hb_gram_kernel_matches_plain(cuda_device, nb, M, V, per_image):
-    """The Gram kernel against ``_gram_assemble`` with J in float64, image by
+    """The Gram kernel against ``gram_assemble_plain`` with J in float64, image by
     image (``hb_gram.oracle``), at the DSLR chunk's shape (8 images x level
     0's 1,579,653 points, PINHOLE with intrinsics: V = 10), at the fisheye
     chunk's (6,317,932 points, THIN_PRISM_FISHEYE with intrinsics: V = 18),

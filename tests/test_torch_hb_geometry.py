@@ -1,10 +1,11 @@
-"""The geometry dispatch of ``photometric/optimizer.py:_hb_batch`` on the
-CPU: CPU tensors take the plain version (``torch.func.jvp`` under ``vmap``)
-for every camera model, launch nothing and count no
-``hb_accumulate.geometry_kernel_rows``; the kernel (``ops/hb_geometry.py``)
-is chosen only for points on the card and the models it implements, and its
-wrappers refuse anything else. The kernel itself is held to the plain
-version on the card (``tests/test_torch_cuda.py``)."""
+"""The geometry dispatch of ``ops/hb_geometry.py`` under
+``photometric/optimizer.py:_hb_batch`` on the CPU: CPU tensors take the
+plain version (``torch.func.jvp`` under ``vmap``) for every camera model,
+launch nothing and count no ``hb_accumulate.geometry_kernel_rows``; the
+kernel is chosen only for points on the card and the models it implements,
+and ``project`` and ``jacobian`` hand anything else to the plain version.
+The kernel itself is held to the plain version on the card
+(``tests/test_torch_cuda.py``)."""
 
 from types import SimpleNamespace
 
@@ -49,33 +50,37 @@ def _batch_args(model, per_image, nb=2, M=500):
     return (cam, cam.params, pose.q, pose.t, pts, nbr, desc, flat, layout, scale, contrib, 0.004)
 
 
+def _no_kernel(monkeypatch):
+    """Fail the test if anything reaches the kernel library."""
+    monkeypatch.setattr(kernels, "library", lambda: pytest.fail("the kernel library was loaded"))
+
+
 @pytest.mark.parametrize("model", sorted(PARAMS))
 @pytest.mark.parametrize("per_image", [False, True])
 def test_cpu_tensors_take_the_plain_version(model, per_image, monkeypatch):
     """``_hb_batch`` on CPU tensors: the plain version gives the geometry,
-    once in each mode, the kernel's wrappers are never called, nothing is
-    launched and ``geometry_kernel_rows`` is not counted."""
+    once in each mode, the kernel is never reached, nothing is launched and
+    ``geometry_kernel_rows`` is not counted."""
     calls = []
 
     def spy(name):
-        fn = getattr(tpo, name)
+        fn = getattr(hg, name)
 
         def wrapped(*a):
             calls.append(name)
             return fn(*a)
 
-        monkeypatch.setattr(tpo, name, wrapped)
+        monkeypatch.setattr(hg, name, wrapped)
 
-    spy("_project_plain")
-    spy("_jacobian_plain")
-    for name in ("project", "jacobian"):
-        monkeypatch.setattr(hg, name, lambda *a, n=name: pytest.fail(f"the kernel's {n} ran"))
+    spy("project_plain")
+    spy("jacobian_plain")
+    _no_kernel(monkeypatch)
     args = _batch_args(model, per_image)
     before = dict(kernels.LAUNCHES)
     t = {}
     with stage(t, "hb_accumulate", torch.device("cpu")):
         H, b, cost, n = tpo._hb_batch(*args, True, True, timings=t)
-    assert calls == ["_project_plain", "_jacobian_plain"]
+    assert calls == ["project_plain", "jacobian_plain"]
     assert kernels.LAUNCHES == before and "hb_accumulate.geometry_kernel_rows" not in t
     V = len(PARAMS[model]) + 6
     assert H.shape == (2, V, V) and b.shape == (2, V) and int(n) > 0
@@ -93,14 +98,16 @@ def test_the_kernel_is_chosen_by_device_and_camera_model(model, kernel):
 
 
 @pytest.mark.parametrize("model", ["PINHOLE", "OPENCV"])
-def test_the_kernel_wrappers_refuse_what_the_kernel_does_not_take(model):
+def test_the_kernel_wrappers_refuse_what_the_kernel_does_not_take(model, monkeypatch):
     """CPU tensors, or a model the kernel does not implement, never reach
-    the entry points: both wrappers raise and launch nothing."""
+    the entry points: ``project`` and ``jacobian`` return the plain
+    version's result bit for bit and launch nothing."""
     cam, params, q, t, pts = _batch_args(model, False)[:5]
-    d = torch.zeros(2, 500)
+    d = torch.rand(2, 500)
+    _no_kernel(monkeypatch)
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="the kernel takes"):
-        hg.project(cam, params, q, t, pts)
-    with pytest.raises(ValueError, match="the kernel takes"):
-        hg.jacobian(cam, params, q, t, pts, 0.004, d, d, d, True, True)
+    for a, b in zip(hg.project(cam, params, q, t, pts), hg.project_plain(cam, params, q, t, pts)):
+        assert torch.equal(a, b)
+    assert torch.equal(hg.jacobian(cam, params, q, t, pts, 0.004, d, d, d, True, True),
+                       hg.jacobian_plain(cam, params, q, t, pts, 0.004, d, d, d, True, True))
     assert kernels.LAUNCHES == before

@@ -1,16 +1,16 @@
-"""The Gram dispatch of ``photometric/optimizer.py:_hb_batch`` and
-``_hb_rig_batch`` on the CPU: CPU tensors take the plain ``_gram_assemble``,
-launch nothing and count no ``hb_accumulate.gram_kernel_rows``; J on the
-card always goes to the kernel (``ops/hb_gram.py``), whose wrapper takes
-float32 J up to 24 wide and refuses anything else, so that nothing on the
-card falls back to the plain body. Where the kernel is chosen the dispatch
-counts nb x M rows and returns the kernel's result unchanged. The
-kernel itself is held to the plain body under emulation
+"""The Gram dispatch of ``ops/hb_gram.py:gram_assemble`` under
+``photometric/optimizer.py:_hb_batch`` and ``_hb_rig_batch`` on the CPU:
+CPU tensors take the plain ``gram_assemble_plain``, launch nothing and count
+no ``hb_accumulate.gram_kernel_rows``; J on the card always goes to the
+kernel, which takes float32 J up to 24 wide and refuses anything else, so
+that nothing on the card falls back to the plain body. Where the kernel is
+chosen the optimizer counts nb x M rows and returns the kernel's result
+unchanged. The kernel itself is held to the plain body under emulation
 (``tests/test_torch_kernels_emulated.py``) and on the card
 (``tests/test_torch_cuda.py``)."""
 
-import contextlib
 import inspect
+import re
 from types import SimpleNamespace
 
 import pytest
@@ -37,23 +37,23 @@ def _rig_args(model, per_image):
 
 def _spy_plain(monkeypatch):
     calls = []
-    plain = tpo._gram_assemble
+    plain = hb_gram.gram_assemble_plain
 
     def wrapped(*a):
         calls.append(a[0].shape)
         return plain(*a)
 
-    monkeypatch.setattr(tpo, "_gram_assemble", wrapped)
+    monkeypatch.setattr(hb_gram, "gram_assemble_plain", wrapped)
     return calls
 
 
 @pytest.mark.parametrize("rig", [False, True])
 @pytest.mark.parametrize("per_image", [False, True])
 def test_cpu_tensors_take_the_plain_body(rig, per_image, monkeypatch):
-    """On the CPU the plain body runs once per call, the kernel's wrapper
-    never, nothing is launched and ``gram_kernel_rows`` is not counted."""
+    """On the CPU the plain body runs once per call, the kernel never,
+    nothing is launched and ``gram_kernel_rows`` is not counted."""
     calls = _spy_plain(monkeypatch)
-    monkeypatch.setattr(hb_gram, "gram_assemble", lambda *a: pytest.fail("the kernel ran"))
+    monkeypatch.setattr(kernels, "library", lambda: pytest.fail("the kernel ran"))
     fn, args = (tpo._hb_rig_batch, _rig_args("PINHOLE", per_image)) if rig else (
         tpo._hb_batch, _batch_args("PINHOLE", per_image))
     before = dict(kernels.LAUNCHES)
@@ -70,14 +70,14 @@ def test_cpu_tensors_take_the_plain_body(rig, per_image, monkeypatch):
 def test_where_the_kernel_is_chosen_it_counts_the_rows_and_its_result_is_returned(rig,
                                                                                 monkeypatch):
     """With the kernel chosen (stood in for by the plain body on the CPU),
-    the dispatch calls it once with the plain body's arguments, counts nb x M
-    ``gram_kernel_rows`` and returns its result as it is, inside the
+    the optimizer calls it once with the plain body's arguments, counts nb x
+    M ``gram_kernel_rows`` and returns its result as it is, inside the
     ``hb_accumulate.gram`` span."""
     got = []
 
     def kernel(*a):
         got.append(a)
-        return tpo._gram_assemble(*a)
+        return hb_gram.gram_assemble_plain(*a)
 
     monkeypatch.setattr(hb_gram, "uses_kernel", lambda J: True)
     monkeypatch.setattr(hb_gram, "gram_assemble", kernel)
@@ -89,7 +89,7 @@ def test_where_the_kernel_is_chosen_it_counts_the_rows_and_its_result_is_returne
         out = fn(*args, True, True, timings=t)
     assert len(got) == 1 and len(calls) == 1  # the stand-in's own call of the plain body
     assert t["hb_accumulate.gram_kernel_rows"] == 2 * 500 and t["hb_accumulate.gram"] > 0
-    ref = tpo._gram_assemble(*got[0])
+    ref = hb_gram.gram_assemble_plain(*got[0])
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
 
@@ -116,14 +116,21 @@ def _gram_args(J):
 @pytest.mark.parametrize("device,dtype,V", [
     ("cpu", torch.float32, 10), ("cpu", torch.float64, 10), ("cuda", torch.float64, 10),
     ("cuda", torch.float32, 25), ("cuda", torch.float16, 24)])
-def test_the_wrapper_refuses_what_the_kernel_does_not_take(device, dtype, V):
+def test_the_wrapper_refuses_what_the_kernel_does_not_take(device, dtype, V, monkeypatch):
     """CPU tensors, and on the card float64 J or J wider than 24, never
-    reach the entry point: the wrapper raises and launches nothing."""
+    reach the entry point: on the CPU the wrapper returns the plain body's
+    result, on the card it raises; nothing is launched."""
     J = (torch.zeros(2, 50, V, dtype=dtype) if device == "cpu" else
          SimpleNamespace(device=torch.device(device), dtype=dtype, shape=(2, 50, V)))
+    monkeypatch.setattr(kernels, "library", lambda: pytest.fail("the kernel ran"))
     before = dict(kernels.LAUNCHES)
-    with pytest.raises(ValueError, match="the kernel takes"):
-        hb_gram.gram_assemble(*_gram_args(J))
+    if device == "cpu":
+        for a, b in zip(hb_gram.gram_assemble(*_gram_args(J)),
+                        hb_gram.gram_assemble_plain(*_gram_args(J))):
+            assert torch.equal(a, b)
+    else:
+        with pytest.raises(ValueError, match="the kernel takes"):
+            hb_gram.gram_assemble(*_gram_args(J))
     assert kernels.LAUNCHES == before
 
 
@@ -134,13 +141,14 @@ def test_the_dispatch_on_the_card_raises_rather_than_take_the_plain_body(dtype, 
     calls = _spy_plain(monkeypatch)
     J = SimpleNamespace(device=torch.device("cuda"), dtype=dtype, shape=(2, 50, V))
     with pytest.raises(ValueError, match="the kernel takes"):
-        tpo._gram_dispatch(*_gram_args(J), contextlib.nullcontext, None)
+        hb_gram.gram_assemble(*_gram_args(J))
     assert calls == []
 
 
 def test_joint_ba_keeps_the_plain_body_in_float64():
-    """Joint BA's ``_image_gram`` calls the plain ``_gram_assemble`` on
-    float64 J on purpose, never the kernel."""
+    """Joint BA's ``_image_gram`` calls the plain ``gram_assemble_plain`` on
+    float64 J on purpose, never the kernel's dispatch."""
     src = inspect.getsource(joint_ba._image_gram)
-    assert "_gram_assemble(J[None].double()" in src and "hb_gram" not in inspect.getsource(joint_ba)
-    assert joint_ba._gram_assemble is tpo._gram_assemble
+    assert "gram_assemble_plain(J[None].double()" in src
+    assert not re.search(r"\bgram_assemble\(|hb_gram\.", inspect.getsource(joint_ba))
+    assert joint_ba.gram_assemble_plain is hb_gram.gram_assemble_plain

@@ -760,7 +760,7 @@ def _hb_inputs(model, per_image, nb=2, M=700):
     return cam, pose.q.contiguous(), pose.t.contiguous(), pts, derivs
 
 
-def _jacobian_oracle(tpo, cam, q, t, pts, derivs, optimize_intrinsics, dynamic_scale):
+def _jacobian_oracle(hg, cam, q, t, pts, derivs, optimize_intrinsics, dynamic_scale):
     """The plain version's J: in float32, or under a fisheye lens in float64
     (the kernel takes the lens in double)."""
     import dataclasses
@@ -769,8 +769,8 @@ def _jacobian_oracle(tpo, cam, q, t, pts, derivs, optimize_intrinsics, dynamic_s
         cam = dataclasses.replace(cam, params=cam.params.double())
         q, t, pts = q.double(), t.double(), pts.double()
         derivs = [d.double() for d in derivs]
-    return tpo._jacobian_plain(cam, cam.params, q, t, pts, 0.004, *derivs, optimize_intrinsics,
-                               dynamic_scale)
+    return hg.jacobian_plain(cam, cam.params, q, t, pts, 0.004, *derivs, optimize_intrinsics,
+                             dynamic_scale)
 
 
 @pytest.mark.parametrize("model", sorted(HB_PARAMS))
@@ -790,7 +790,6 @@ def test_hb_geometry_kernel_emulated(emu, model, per_image, dynamic_scale, optim
     float64: in float32 its footprint tangent, a difference of two lens
     evaluations 1e-3 apart, is itself good to only ~1e-3."""
     from dataset_pipeline_tpu_torch.ops import hb_geometry as hg
-    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
 
     cam, q, t, pts, (dpx, dpy, dvds) = _hb_inputs(model, per_image)
     nb, M = q.shape[0], pts.shape[-2]
@@ -808,8 +807,8 @@ def test_hb_geometry_kernel_emulated(emu, model, per_image, dynamic_scale, optim
                                         dpy.data_ptr(), dvds.data_ptr(), 0.004,
                                         int(dynamic_scale), int(optimize_intrinsics),
                                         J.data_ptr(), None) == 0
-    pix_p, valid_p = tpo._project_plain(cam, cam.params, q, t, pts)
-    J_p = _jacobian_oracle(tpo, cam, q, t, pts, (dpx, dpy, dvds), optimize_intrinsics,
+    pix_p, valid_p = hg.project_plain(cam, cam.params, q, t, pts)
+    J_p = _jacobian_oracle(hg, cam, q, t, pts, (dpx, dpy, dvds), optimize_intrinsics,
                            dynamic_scale)
     assert torch.equal(valid, valid_p) and 0.4 < valid_p.float().mean() < 0.8
     np.testing.assert_allclose(pix.numpy(), pix_p.numpy(), rtol=1e-6,
@@ -906,7 +905,7 @@ def _gram_jax(J, inten, ok, nbr, desc, contrib):
 
 @pytest.mark.parametrize("V,K,nbr_per_image,desc_per_image,skipped_tile,blocks", _GRAM_CASES)
 def test_hb_gram_kernel_emulated(emu, V, K, nbr_per_image, desc_per_image, skipped_tile, blocks):
-    """H, b, cost and count against the port's ``_gram_assemble`` and
+    """H, b, cost and count against the port's ``gram_assemble_plain`` and
     against JAX's (``KERNELS['hb_gram'].replaces``), each with J in float64:
     the count equal, H within 1e-5 of sqrt(H_ii H_jj) and exactly symmetric,
     b within 1e-5 of sqrt(H_ii S) (S = sum w r^2, a bound of |b_i|), the
@@ -916,13 +915,14 @@ def test_hb_gram_kernel_emulated(emu, V, K, nbr_per_image, desc_per_image, skipp
     the next width up with zero columns; 24 is a rig's width under a model
     of 12 intrinsics; blocks per image 1 to 3 take the records' fixed-order
     sum."""
-    from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
+    from dataset_pipeline_tpu_torch.ops import hb_gram
+    from dataset_pipeline_tpu_torch.ops.robust import DEFAULT_COLOR_HUBER, huber_weight
 
     J, inten, ok, nbr, desc, contrib = _gram_inputs(V, K, nbr_per_image, desc_per_image,
                                                     skipped_tile)
     H, b, cost, n = _gram_emulated(emu, J, inten, ok, nbr, desc, contrib, blocks)
-    Hp, bp, cp, n_p = tpo._gram_assemble(J.double(), inten, ok, nbr, desc, contrib)
-    all_ok = ok & tpo._nbr_inten_ok(inten, ok, nbr)[1].all(-1) & contrib
+    Hp, bp, cp, n_p = hb_gram.gram_assemble_plain(J.double(), inten, ok, nbr, desc, contrib)
+    r, all_ok = hb_gram.descriptor_residuals(inten, ok, nbr, desc, contrib)
     assert int(n) == int(n_p) == int(all_ok.sum()) and 0.1 < float(all_ok.float().mean()) < 0.6
     if skipped_tile:
         assert not bool(all_ok[0, 256:512].any())
@@ -931,14 +931,12 @@ def test_hb_gram_kernel_emulated(emu, V, K, nbr_per_image, desc_per_image, skipp
     assert bool((d > 0).all())
     H_gap = ((H.double() - Hp).abs() / torch.sqrt(d[:, :, None] * d[:, None, :])).max()
     # S per image from the plain version's residuals: b_i <= sqrt(H_ii S) by Cauchy-Schwarz
-    nbr_inten, _ = tpo._nbr_inten_ok(inten, ok, nbr)
-    r = torch.where(all_ok[..., None], (nbr_inten - inten[..., None]) - desc, torch.zeros(()))
     norm = torch.sqrt(torch.clamp((r.double() ** 2).sum(-1), min=1e-20))
-    w = torch.where(all_ok, tpo.huber_weight(norm, tpo.DEFAULT_COLOR_HUBER), torch.zeros(()))
+    w = torch.where(all_ok, huber_weight(norm, DEFAULT_COLOR_HUBER), torch.zeros(()))
     S = (w * norm ** 2).sum(1)
     b_gap = ((b.double() - bp).abs() / torch.sqrt(d * S[:, None])).max()
     assert float(H_gap) < 1e-5 and float(b_gap) < 1e-5, (float(H_gap), float(b_gap))
-    assert 0.3 < float((norm[all_ok] <= tpo.DEFAULT_COLOR_HUBER).double().mean()) < 0.9
+    assert 0.3 < float((norm[all_ok] <= DEFAULT_COLOR_HUBER).double().mean()) < 0.9
     np.testing.assert_allclose(float(cost), float(cp), rtol=1e-5)
     Hj, bj, cj, nj = _gram_jax(J, inten, ok, nbr, desc, contrib)
     assert nj == int(n)

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 import dataset_pipeline_tpu.photometric.optimizer as jpo
+from dataset_pipeline_tpu_torch.ops import hb_gram
 from dataset_pipeline_tpu_torch.photometric import optimizer as tpo
 from dataset_pipeline_tpu_torch.photometric import problem as tpb
 from scenes import synthetic_two_frame_problem
@@ -194,27 +195,16 @@ def test_uneven_image_chunks_match_jax(port_chunk):
     np.testing.assert_allclose(tb, bb, rtol=0, atol=1e-4 * np.abs(bb).max())
 
 
-def test_scaled_params_match_scaled_by():
-    from dataset_pipeline_tpu_torch.models import cameras as tcm
-
-    for model, params in (("PINHOLE", [300.0, 301.0, 159.5, 119.5]),
-                          ("SIMPLE_RADIAL", [300.0, 159.5, 119.5, 0.01])):
-        cam = tcm.make_camera(model, 320, 240, params, cutoff=False, device="cpu")
-        for s in (1, 2):
-            np.testing.assert_array_equal(tpo._scaled_params(cam, cam.params, s).numpy(),
-                                          tcm.scaled_by(cam, 2.0 ** -s).params.numpy())
-
-
 def test_split_gram_matches_one_product():
     """The row-split Gram product (several slices plus a remainder) equals
     the single product in float64."""
     rng = np.random.RandomState(8)
-    M = 3 * tpo._GRAM_ROWS + 777
+    M = 3 * hb_gram._GRAM_ROWS + 777
     x = torch.from_numpy(rng.randn(2, M, 10).astype(np.float32))
     y = torch.from_numpy(rng.randn(2, M, 3).astype(np.float32))
     ref = torch.bmm(x.double().transpose(1, 2), y.double()).numpy()
-    np.testing.assert_allclose(tpo._gram(x, y).double().numpy(), ref, rtol=0, atol=1e-3)
-    np.testing.assert_allclose(tpo._gram(x[:, :100], y[:, :100]).numpy(),
+    np.testing.assert_allclose(hb_gram.gram(x, y).double().numpy(), ref, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(hb_gram.gram(x[:, :100], y[:, :100]).numpy(),
                                torch.bmm(x[:, :100].transpose(1, 2), y[:, :100]).numpy())
 
 

@@ -243,6 +243,7 @@ def test_rig_jacobians_against_central_differences():
     pose]) against central differences of the intensity, as
     ``test_photometric_jacobians.py:121`` holds the JAX chain."""
     from dataset_pipeline_tpu_torch.models import cameras as tcm
+    from dataset_pipeline_tpu_torch.ops import hb_geometry as hg
     from dataset_pipeline_tpu_torch.ops.pyramid_sample import flatten_pyramid
 
     W, H = 64, 48
@@ -265,12 +266,12 @@ def test_rig_jacobians_against_central_differences():
         return v[0].double()
 
     z6 = torch.zeros(6)
-    geom = tpo._geom_fn(cam, pts, 0.0, False, lambda e, r: SE3.exp(e).compose(extr).compose(
+    geom = hg.geom_fn(cam, pts, 0.0, False, lambda e, r: SE3.exp(e).compose(extr).compose(
         SE3.exp(r).compose(SE3(ref.q[None, None], ref.t[None, None]))))
     pix, _ = geom(z6, z6, cam.params)
     _, dpx, dpy, dvds, _ = tpo.pyramid_sample(flat, layout, pix.contiguous(), obs, True)
-    J = tpo._forward_jacobian(geom, (z6, z6, cam.params), lambda t: (t[:6], t[6:], cam.params * 0),
-                              torch.eye(12), tpo._intensity_chain(dpx, dpy, dvds, False), 40)[0]
+    J = hg.forward_jacobian(geom, (z6, z6, cam.params), lambda t: (t[:6], t[6:], cam.params * 0),
+                            torch.eye(12), hg.intensity_chain(dpx, dpy, dvds, False), 40)[0]
     for c in range(12):
         e = torch.zeros(12)
         e[c] = 1e-3
